@@ -1,0 +1,57 @@
+"""The PyTorch port imports neither JAX, flax, PIL nor the JAX package: the
+machine with the card has none of them."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "cpu_ray_tracer_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cpu_ray_tracer_tpu")
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in PKG.rglob("*.py")
+)
+
+_IMPORT_ALL = f"""
+import importlib, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of them raises ImportError
+for name in {MODULES!r}:
+    importlib.import_module(name)
+loaded = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r} and sys.modules[m] is not None]
+assert not loaded, loaded
+print(len({MODULES!r}))
+"""
+
+
+def test_every_module_imports_without_jax_flax_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(MODULES) >= 20
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_blocked_import_statement(path):
+    """Also the imports inside functions, which an import run misses."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, f"{path.name}: import {name}"
