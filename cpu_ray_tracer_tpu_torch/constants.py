@@ -1,9 +1,11 @@
 """Global numeric constants, the same float32 values as the JAX package's
-`cpu_ray_tracer_tpu/constants.py` (the subset the path tracer uses)."""
+`cpu_ray_tracer_tpu/constants.py` (the subset the path tracer and the
+Whitted tracer use)."""
 
 import numpy as np
 
 INVPI = np.float32(0.31830988618379067153777)
+TWO_PI = np.float32(2.0 * np.pi)
 
 # Ray-miss sentinel distance (template/ray.h:15 `distance = 1e34f`).
 RAY_FAR = np.float32(1e34)
@@ -20,3 +22,6 @@ IOR = np.float32(1.2)
 
 # The scene's single light color (tlas_file_scene.cpp GetLightColor).
 LIGHT_COLOR = np.array([24.0, 24.0, 22.0], np.float32)
+
+# Whitted constant ambient term (2. WhittedStyle/renderer.cpp:77).
+AMBIENT = np.array([0.3, 0.3, 0.3], np.float32)

@@ -62,7 +62,11 @@ def nearest_texel(packed: torch.Tensor, off, w, h, u, v) -> torch.Tensor:
     vv = 1.0 - torch.clamp(v, 0.0, 1.0)
     x = torch.minimum(torch.clamp_min((uu * w.to(torch.float32)).to(torch.int32), 0), w - 1)
     y = torch.minimum(torch.clamp_min((vv * h.to(torch.float32)).to(torch.int32), 0), h - 1)
-    p = packed[(off + x + y * w).long()]
+    return unpack_rgb(packed[(off + x + y * w).long()])
+
+
+def unpack_rgb(p: torch.Tensor) -> torch.Tensor:
+    """float32 [N, 3] in [0, 1] of packed `0x00RRGGBB` texels [N]."""
     rgb = torch.stack([(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF], dim=-1)
     return rgb.to(torch.float32) * INV_255
 

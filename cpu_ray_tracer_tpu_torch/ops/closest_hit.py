@@ -1,10 +1,12 @@
-"""Closest-hit query over the scene's BVH: the CUDA kernel's wrapper
-(`closest_hit`) and its plain PyTorch version (`closest_hit_plain`).
+"""Closest-hit and any-hit queries over the scene's BVH: the CUDA kernels'
+wrappers (`closest_hit`, `occluded`) and their plain PyTorch versions
+(`closest_hit_plain`, `occluded_plain`).
 
 The port of the JAX package's packet kernel `_kernel_stack` and its
 launcher `traverse` (cpu_ray_tracer_tpu/ops/pallas/packet_bvh.py:442-678,
-:763-926); the walk is described in `csrc/closest_hit.cu`.  Both functions
-take the same arguments and return the same dict:
+:763-926), in its closest-hit and any-hit modes; the walk is described in
+`csrc/ptraverse.cuh`.  `closest_hit` and `closest_hit_plain` take the same
+arguments and return the same dict:
 
     t, u, v      float32 [R]  hit distance (t0 where nothing closer was hit)
                               and barycentrics (0 on a miss)
@@ -13,8 +15,10 @@ take the same arguments and return the same dict:
     traversed, tested         int32 [R]  interior steps, triangle tests
 
 Rays with mask False do nothing: t = t0, slot -1, counters 0.
+`occluded` and `occluded_plain` return bool [R]: a hit exists in
+(TRI_EPS, t0) (False where mask is False).
 
-`closest_hit` runs the plain version for tensors on the CPU and launches
+Each wrapper runs the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no other fallback.
 """
 
@@ -110,10 +114,12 @@ def _leaf_tests(tris, ids, first, count, o, d, res):
     res["tested"][ids] += count
 
 
-def closest_hit_plain(scene, o, d, t0, mask=None) -> dict:
+def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
     """The kernel's walk in plain PyTorch, lockstep over the rays: each
     round every unfinished ray takes one step of its own walk, in the
-    kernel's order, so t/u/v, ids and counters equal the kernel's."""
+    kernel's order.  With `any_hit` a ray stops after the step in which it
+    accepted a triangle (the kernel stops at that triangle; the boolean is
+    the same)."""
     nodes, tris = scene.nodes, scene.tris
     r, dev = o.shape[0], o.device
     res = _outputs(t0)
@@ -130,7 +136,7 @@ def closest_hit_plain(scene, o, d, t0, mask=None) -> dict:
         rec = nodes[scene.root]
         n = ids.numel()
         _leaf_tests(tris, ids, rec[N_FIRST].expand(n), rec[N_COUNT].expand(n), o, d, res)
-        return _decode(scene.shade, res)
+        return res
 
     cur = torch.where(live, scene.root, -1).long()
     stack = torch.full((r, max(scene.depth, 1)), -1, dtype=torch.long, device=dev)
@@ -160,36 +166,46 @@ def closest_hit_plain(scene, o, d, t0, mask=None) -> dict:
         has = sp_ids > 0
         top = stack[ids, (sp_ids - 1).clamp_min(0)]
         nxt = torch.where(go_n, near, torch.where(go_f, far, torch.where(has, top, -1)))
+        if any_hit:
+            nxt = torch.where(res["slot"][ids] >= 0, -1, nxt)
         sp[ids] = torch.where(pop & has, sp_ids - 1, sp_ids)
         cur[ids] = nxt
         res["traversed"][ids] += 1
-    return _decode(scene.shade, res)
+    return res
 
 
-def closest_hit(scene, o, d, t0, mask=None) -> dict:
-    """Closest hit of rays (o, d) [R, 3] with t0 [R] and mask [R] bool:
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if o.device.type == "cpu":
-        return closest_hit_plain(scene, o, d, t0, mask)
-    if o.device.type != "cuda":
-        raise ValueError(f"closest_hit: unsupported device {o.device}")
+def closest_hit_plain(scene, o, d, t0, mask=None) -> dict:
+    """The kernel's closest-hit walk in plain PyTorch, lockstep over the
+    rays, so t/u/v, ids and counters equal the kernel's."""
+    return _decode(scene.shade, _walk_plain(scene, o, d, t0, mask, any_hit=False))
+
+
+def occluded_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
+    """Bool [R]: whether a triangle hit exists in (TRI_EPS, t0), by the
+    any-hit walk in plain PyTorch."""
+    return _walk_plain(scene, o, d, t0, mask, any_hit=True)["slot"] >= 0
+
+
+def _check(what, o, d, t0, mask, scene):
     r = o.shape[0]
-    if mask is None:
-        mask = torch.ones(r, dtype=torch.bool, device=o.device)
-    tensors = dict(
+    kernel_lib.require(
+        what, o.device,
         o=(o, torch.float32, (r, 3)), d=(d, torch.float32, (r, 3)),
         t0=(t0, torch.float32, (r,)), mask=(mask, torch.bool, (r,)),
         nodes=(scene.nodes, torch.int32, None), tris=(scene.tris, torch.float32, None),
         shade=(scene.shade, torch.float32, None),
     )
-    for name, (x, dtype, shape) in tensors.items():
-        if x.device != o.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(
-                f"closest_hit: {name} must be a contiguous {dtype} tensor on {o.device}, "
-                f"got {x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
-            )
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"closest_hit: {name} has shape {tuple(x.shape)}, expected {shape}")
+
+
+def closest_hit(scene, o, d, t0, mask=None) -> dict:
+    """Closest hit of rays (o, d) [R, 3] with t0 [R] and mask [R] bool:
+    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if kernel_lib.on_cpu("closest_hit", o):
+        return closest_hit_plain(scene, o, d, t0, mask)
+    r = o.shape[0]
+    if mask is None:
+        mask = torch.ones(r, dtype=torch.bool, device=o.device)
+    _check("closest_hit", o, d, t0, mask, scene)
     k = kernel_lib.load()
     f32 = dict(dtype=torch.float32, device=o.device)
     i32 = dict(dtype=torch.int32, device=o.device)
@@ -205,11 +221,34 @@ def closest_hit(scene, o, d, t0, mask=None) -> dict:
         *(out[key].data_ptr() for key in (
             "t", "u", "v", "slot", "tri_idx", "obj_id", "mat_id", "traversed", "tested",
         )),
-        torch.cuda.current_stream(o.device).cuda_stream,
+        kernel_lib.stream(o.device),
     )
     kernel_lib.check(k.lib, code, "closest_hit")
     closest_hit.launches += 1
     return out
 
 
+def occluded(scene, o, d, t0, mask=None) -> torch.Tensor:
+    """Any hit of rays (o, d) [R, 3] in (TRI_EPS, t0) [R], for rays with
+    mask [R] True: bool [R].  The plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors."""
+    if kernel_lib.on_cpu("occluded", o):
+        return occluded_plain(scene, o, d, t0, mask)
+    r = o.shape[0]
+    if mask is None:
+        mask = torch.ones(r, dtype=torch.bool, device=o.device)
+    _check("occluded", o, d, t0, mask, scene)
+    k = kernel_lib.load()
+    out = torch.empty(r, dtype=torch.bool, device=o.device)
+    code = k.lib.crt_occluded(
+        o.data_ptr(), d.data_ptr(), t0.data_ptr(), mask.data_ptr(), r,
+        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.root, out.data_ptr(),
+        kernel_lib.stream(o.device),
+    )
+    kernel_lib.check(k.lib, code, "occluded")
+    occluded.launches += 1
+    return out
+
+
 closest_hit.launches = 0  # kernel launches since the last reset
+occluded.launches = 0

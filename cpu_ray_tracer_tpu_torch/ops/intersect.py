@@ -8,9 +8,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
 
 _TINY = np.float32(1e-20)
+FLOOR_NORMAL = np.array([0.0, 1.0, 0.0], np.float32)
+FLOOR_D = np.float32(1.0)
 
 
 def _guard(x: torch.Tensor) -> torch.Tensor:
@@ -51,3 +54,29 @@ def quad(o, d, inv_t, size, t_max):
     iz = row_pos(2) + t * row_dir(2)
     hit = (t < t_max) & (t > 0.0) & (ix > -size) & (ix < size) & (iz > -size) & (iz < size)
     return t, hit
+
+
+def primitive_hits(scene, o: torch.Tensor, d: torch.Tensor):
+    """Nearest of the scene's light quad (object 0) and floor plane
+    (object 1): (t [R], obj [R]), t = RAY_FAR and obj = -1 where both miss."""
+    r = o.shape[0]
+    t = torch.full((r,), constants.RAY_FAR, dtype=torch.float32, device=o.device)
+    obj = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+    lt, lhit = quad(o, d, scene.light_inv_t, scene.light_size, t)
+    t = torch.where(lhit, lt, t)
+    obj = torch.where(lhit, 0, obj)
+    floor_n = torch.as_tensor(FLOOR_NORMAL, device=o.device)
+    ft, fhit = plane(o, d, floor_n, FLOOR_D, t)
+    return torch.where(fhit, ft, t), torch.where(fhit, 1, obj)
+
+
+def light_pos(light_t: torch.Tensor) -> torch.Tensor:
+    """The point light: the middle of the light quad's corners (-0.5, 0,
+    -0.5) and (0.5, 0, 0.5) moved by `light_t`, minus 0.01 in y
+    (tlas_file_scene.cpp:191-196).  float32 [3]."""
+
+    def corner(x, z):
+        return light_t[:3, 0] * x + light_t[:3, 1] * 0.0 + light_t[:3, 2] * z + light_t[:3, 3]
+
+    dy = torch.tensor([0.0, 0.01, 0.0], dtype=torch.float32, device=light_t.device)
+    return (corner(-0.5, -0.5) + corner(0.5, 0.5)) * 0.5 - dy

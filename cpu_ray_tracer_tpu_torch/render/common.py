@@ -1,4 +1,4 @@
-"""Shading pieces of the path tracer, as the JAX package's
+"""Shading pieces of both integrators, as the JAX package's
 `cpu_ray_tracer_tpu/render/common.py` (same float32 operation order)."""
 
 from __future__ import annotations
@@ -8,8 +8,31 @@ import torch
 
 from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
+from cpu_ray_tracer_tpu_torch.scene import query
 
-TWO_PI = np.float32(2.0 * np.pi)
+EPS = constants.SHADE_EPS
+
+
+def direct_illumination(scene, point: torch.Tensor, normal: torch.Tensor, active=None):
+    """Point-light irradiance [R, 3] with a shadow ray
+    (2. WhittedStyle/renderer.cpp:105-126): inverse-square falloff, N.L,
+    shadow distance dist - 2 EPS; zero where `active` [R] is False."""
+    light_pos = query.get_light_pos(scene)
+    l = light_pos - point
+    dist = torch.sqrt((l * l).sum(dim=-1))
+    l = l / torch.clamp_min(dist, np.float32(1e-20))[:, None]
+    ndotl = vm.dot(normal, l)
+    facing = ndotl >= EPS
+    occ = query.is_occluded(
+        scene, (point + l * EPS).contiguous(), l.contiguous(),
+        torch.clamp_min(dist - np.float32(2.0) * EPS, np.float32(1e-6)), mask=active,
+    )
+    att = 1.0 / torch.clamp_min(dist * dist, np.float32(1e-20))
+    irr = scene.light_color * (att * ndotl)[:, None]
+    vis = facing & ~occ
+    if active is not None:
+        vis = vis & active
+    return torch.where(vis[:, None], irr, np.float32(0.0))
 
 
 def dielectric_terms(d: torch.Tensor, n: torch.Tensor, inside: torch.Tensor):
@@ -49,7 +72,7 @@ def uniform_hemisphere(n: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor):
     """Uniform solid-angle direction about n (pdf 1/2pi), paired with the
     estimator brdf * 2pi * cos (3. PathTracer/renderer.cpp:93-99)."""
     z = r1
-    phi = TWO_PI * r2
+    phi = constants.TWO_PI * r2
     r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     x = r * torch.cos(phi)
     y = r * torch.sin(phi)

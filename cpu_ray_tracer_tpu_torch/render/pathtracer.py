@@ -1,6 +1,8 @@
 """Monte-Carlo path tracer: the JAX package's host-bounce path
 (`cpu_ray_tracer_tpu/render/pathtracer.py`: `_bounce_step` :315-470,
-`sample_radiance` and `render_pass` :1189-1474, with `CRT_WAVEFRONT=0`).
+`sample_radiance` and `render_pass` :1189-1474, with `CRT_WAVEFRONT=0`)
+and its wavefront configuration (`_sample_radiance_wavefront` :636-777,
+`CRT_WAVEFRONT=1`, `CRT_WF_DEPTHS=k`).
 
 The reference's recursive `Sample` (3. PathTracer/renderer.cpp:50-101) is a
 loop over depths with one stochastic child per bounce.  Estimator:
@@ -17,8 +19,16 @@ light hit) and a finished ray's direction and throughput never change
 again, so the state keeps two bits (`missed`, `lit`) and the emission is
 applied after the last depth.
 
-The ray state stays in pixel order.  At each depth the live rays are
-gathered, ordered by (direction octant, previous-hit triangle) — the
+`wavefront_depths=k` runs depths [0, k) in one launch of the wavefront
+kernel (`ops/wavefront_pt.py`), with the state in registers and the rays in
+pixel order; its textured hits multiply albedo 1 and record texel indices,
+whose factors multiply the radiance at the end (albedo only scales the
+throughput).  The rays still alive go on through the host bounce from
+depth k.  k = 0 is the host bounce alone.
+
+The ray state of the host bounce stays in pixel order.  At each depth the
+live rays are gathered, ordered by (direction octant, previous hit: the
+triangle, or the slot where the wavefront kernel made the hit) — the
 `locus` key of the JAX package's `_compaction_perm`, which only affects
 speed — bounced, and scattered back.  This replaces the JAX package's
 chunk scans, `lax.cond` skips and tier cascade, which exist for XLA's
@@ -34,12 +44,15 @@ from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
 from cpu_ray_tracer_tpu_torch.core import rng
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
+from cpu_ray_tracer_tpu_torch.ops import wavefront_pt
 from cpu_ray_tracer_tpu_torch.render import common
 from cpu_ray_tracer_tpu_torch.scene import query
 
 EPS = constants.SHADE_EPS
 _STATE = ("o", "d", "seed", "throughput", "inside", "alive", "missed", "lit",
           "traversed", "tested", "locus")
+# depths the wavefront kernel runs by default (0: the host bounce alone)
+WAVEFRONT_DEPTHS = 1
 
 
 def locus_order(d: torch.Tensor, locus: torch.Tensor) -> torch.Tensor:
@@ -84,7 +97,7 @@ def bounce_step(scene, s: dict, depth: int, depth_limit: int) -> dict:
     seed, r2 = rng.random_float(seed)
     diff_dir = common.uniform_hemisphere(normal, r1, r2)
     cosr = torch.clamp_min(vm.dot(diff_dir, normal), 0.0)
-    diff_w = albedo * constants.INVPI * common.TWO_PI * cosr[:, None]
+    diff_w = albedo * constants.INVPI * constants.TWO_PI * cosr[:, None]
 
     diff = pick_diff[:, None]
     new_d = torch.where(diff, diff_dir, torch.where(take_refract[:, None], t_dir, r_dir))
@@ -124,14 +137,32 @@ def initial_state(o, d, seeds) -> dict:
     )
 
 
-def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT):
+def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT,
+                    wavefront_depths: int = WAVEFRONT_DEPTHS):
     """Radiance [R, 3] along rays (o, d) [R, 3] with per-ray seeds [R]
     (uint32 values in int64), in the input ray order, and stats:
     `rays_traced` (path segments traced, an int), per-ray `traversed` and
-    `tested` counters."""
-    state = initial_state(o, d, seeds)
+    `tested` counters.  The first `wavefront_depths` depths run in the
+    wavefront kernel (module docstring)."""
+    factor = None
+    first = 0
     rays_traced = 0
-    for depth in range(depth_limit + 1):
+    if wavefront_depths > 0:
+        first = min(wavefront_depths, depth_limit + 1)
+        with torch.profiler.record_function(f"wavefront_{first}"):
+            wf = wavefront_pt.trace(scene, o, d, seeds, first, depth_limit)
+            factor = query.texel_factor(scene, wf["tex_idx"][:, 0])
+            for k in range(1, first):
+                factor = factor * query.texel_factor(scene, wf["tex_idx"][:, k])
+        rays_traced = int(wf["live_counts"].sum())
+        state = dict(
+            o=wf["o"], d=wf["d"], seed=wf["seed"], throughput=wf["tp"],
+            inside=wf["inside"], alive=wf["alive"], missed=wf["missed"], lit=wf["lit"],
+            traversed=wf["traversed"], tested=wf["tested"], locus=wf["locus"],
+        )
+    else:
+        state = initial_state(o, d, seeds)
+    for depth in range(first, depth_limit + 1):
         live = torch.nonzero(state["alive"]).squeeze(1)
         rays_traced += live.numel()
         if live.numel() == 0:
@@ -146,6 +177,8 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
     radiance = torch.where(state["lit"][:, None], tp * scene.light_color, np.float32(0.0))
     sky = torch.nonzero(state["missed"]).squeeze(1)
     radiance[sky] += tp[sky] * query.sky_color(scene, state["d"][sky])
+    if factor is not None:
+        radiance = radiance * factor
     return radiance, dict(
         rays_traced=rays_traced, traversed=state["traversed"], tested=state["tested"]
     )
@@ -164,9 +197,10 @@ def camera_rays(camera: cam_mod.Camera, spp_index: int, device=None):
 
 
 def render_pass(scene, camera: cam_mod.Camera, spp_index: int,
-                depth_limit: int = constants.DEPTH_LIMIT):
+                depth_limit: int = constants.DEPTH_LIMIT,
+                wavefront_depths: int = WAVEFRONT_DEPTHS):
     """One progressive pass, one jittered sample per pixel.  Returns
     (radiance [H, W, 3], stats)."""
     o, d, seeds = camera_rays(camera, spp_index, scene.device)
-    radiance, stats = sample_radiance(scene, o, d, seeds, depth_limit)
+    radiance, stats = sample_radiance(scene, o, d, seeds, depth_limit, wavefront_depths)
     return radiance.reshape(camera.height, camera.width, 3), stats

@@ -40,9 +40,10 @@ def _object_matrix(obj) -> np.ndarray:
 
 def compile_scene(
     xml_path: str, layout: str = "tlas", accel: str = "bvh", instancing: str = "baked",
+    shadow_quirk: bool = True,
 ) -> tuple[DeviceScene, SceneInfo]:
     """Compile an XML scene to a DeviceScene on the CPU; `.to(device)`
-    moves it."""
+    moves it.  `shadow_quirk` as the JAX package's (`DeviceScene` doc)."""
     if layout != "tlas":
         raise NotImplementedError("layout='mono' is not ported yet (ROADMAP queue 1, item 10)")
     if accel != "bvh":
@@ -131,6 +132,7 @@ def compile_scene(
         light_color=constants.LIGHT_COLOR,
         floor_inv_to=100.0 / floor_tex_width,
         skydome_tex=skydome_tex,
+        shadow_quirk=shadow_quirk,
     )
     info = SceneInfo(
         name=spec.name,

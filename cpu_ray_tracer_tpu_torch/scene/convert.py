@@ -18,7 +18,8 @@ the two scene compilers agree.
 * `atlas.texels`, `.packed`, `.offset`, `.width`, `.height`;
 * `light_t`, `light_inv_t`, `light_size`, `light_color`, `floor_inv_to`.
 
-`meta`: `root`, `stack_depth` (0 when the root is a leaf), `skydome_tex`.
+`meta`: `root`, `stack_depth` (0 when the root is a leaf), `skydome_tex`,
+and optionally `shadow_quirk` (default True).
 """
 
 from __future__ import annotations
@@ -88,4 +89,5 @@ def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
         light_color=a["light_color"],
         floor_inv_to=float(a["floor_inv_to"]),
         skydome_tex=int(meta["skydome_tex"]),
+        shadow_quirk=bool(meta.get("shadow_quirk", True)),
     )

@@ -1,7 +1,8 @@
 """Scene queries over ray batches, as the JAX package's
-`cpu_ray_tracer_tpu/scene/query.py:142-185, 293-461` for the TLAS-baked
-BVH scene: FindNearest, GetHitInfo, the material fields, GetAlbedo and the
-sky (the reference's BaseScene virtuals, infra/scene/base_scene.h:16-32).
+`cpu_ray_tracer_tpu/scene/query.py:142-185, 265-470` for the TLAS-baked
+BVH scene: FindNearest, IsOccluded, GetHitInfo, the material fields,
+GetAlbedo, the sky and GetLightPos (the reference's BaseScene virtuals,
+infra/scene/base_scene.h:16-32).
 """
 
 from __future__ import annotations
@@ -12,31 +13,13 @@ import torch
 from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import textures as tex_mod
 from cpu_ray_tracer_tpu_torch.ops import intersect
-from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit
-
-FLOOR_NORMAL = np.array([0.0, 1.0, 0.0], np.float32)
-FLOOR_D = np.float32(1.0)
-
-
-def primitive_hits(scene, o: torch.Tensor, d: torch.Tensor):
-    """Nearest of the light quad (object 0) and the floor plane (object 1):
-    (t [R], obj [R]), t = RAY_FAR and obj = -1 where both miss."""
-    r = o.shape[0]
-    t = torch.full((r,), constants.RAY_FAR, dtype=torch.float32, device=o.device)
-    obj = torch.full((r,), -1, dtype=torch.int32, device=o.device)
-    lt, lhit = intersect.quad(o, d, scene.light_inv_t, scene.light_size, t)
-    t = torch.where(lhit, lt, t)
-    obj = torch.where(lhit, 0, obj)
-    floor_n = torch.as_tensor(FLOOR_NORMAL, device=o.device)
-    ft, fhit = intersect.plane(o, d, floor_n, FLOOR_D, t)
-    return torch.where(fhit, ft, t), torch.where(fhit, 1, obj)
-
+from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit, occluded
 
 def find_nearest(scene, o: torch.Tensor, d: torch.Tensor) -> dict:
     """Nearest hit over light quad -> floor plane -> triangle BVH, as
     FileScene::FindNearest (file_scene.cpp:170-175).  Object ids: 0 light,
     1 floor, >= 2 mesh instances, -1 miss."""
-    t, obj = primitive_hits(scene, o, d)
+    t, obj = intersect.primitive_hits(scene, o, d)
     res = closest_hit(scene, o, d, t)
     tri_hit = res["tri_idx"] >= 0
     return dict(
@@ -50,6 +33,22 @@ def find_nearest(scene, o: torch.Tensor, d: torch.Tensor) -> dict:
         traversed=res["traversed"],
         tested=res["tested"],
     )
+
+
+def is_occluded(scene, o: torch.Tensor, d: torch.Tensor, dist: torch.Tensor, mask=None):
+    """Shadow query (file_scene.cpp:177-187): the light quad occludes within
+    `dist` (the caller passes dist - 2 EPS); triangles occlude within
+    RAY_FAR when `scene.shadow_quirk` (the reference's quirk), else within
+    `dist`.  The floor never occludes.  `mask` [R] bool limits the triangle
+    query; bool [R]."""
+    _, lhit = intersect.quad(o, d, scene.light_inv_t, scene.light_size, dist)
+    tri_t = torch.full_like(dist, constants.RAY_FAR) if scene.shadow_quirk else dist
+    return lhit | occluded(scene, o, d, tri_t.contiguous(), mask)
+
+
+def get_light_pos(scene) -> torch.Tensor:
+    """GetLightPos: the point light, float32 [3] (`intersect.light_pos`)."""
+    return intersect.light_pos(scene.light_t)
 
 
 def get_hit_info(scene, hit: dict, point: torch.Tensor, d: torch.Tensor):
@@ -69,7 +68,7 @@ def get_hit_info(scene, hit: dict, point: torch.Tensor, d: torch.Tensor):
 
     # light quad normal: TransformVector((0,-1,0), T) (primitives.h:365-369)
     light_n = -scene.light_t[:3, 1]
-    floor_n = torch.as_tensor(FLOOR_NORMAL, device=point.device)
+    floor_n = torch.as_tensor(intersect.FLOOR_NORMAL, device=point.device)
     floor_uv = intersect.plane_uv(point, scene.floor_inv_to)
     is_light = (obj == 0)[:, None]
     is_floor = (obj == 1)[:, None]
@@ -107,6 +106,14 @@ def get_albedo(scene, fields: dict, uv: torch.Tensor) -> torch.Tensor:
         uv[:, 0], uv[:, 1],
     )
     return torch.where((fields["tex_id"] >= 0)[:, None], texel, fields["albedo"])
+
+
+def texel_factor(scene, idx: torch.Tensor) -> torch.Tensor:
+    """float32 [R, 3]: the atlas texel `idx` [R] (a nearest-texel index the
+    wavefront and Whitted kernels record), 1 where idx < 0 (the JAX
+    package's `_tex_rgb`, render/pathtracer.py:547)."""
+    rgb = tex_mod.unpack_rgb(scene.atlas_packed[idx.clamp_min(0).long()])
+    return torch.where((idx >= 0)[:, None], rgb, np.float32(1.0))
 
 
 def sky_color(scene, d: torch.Tensor) -> torch.Tensor:

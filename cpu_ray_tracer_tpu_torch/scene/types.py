@@ -11,7 +11,12 @@ for the TLAS-baked BVH layout.  Fields:
   and height joined from the atlas (`mat_tex_off` / `_w` / `_h`);
 * `atlas_*`: the texture atlas (`core/textures.py`);
 * the quad light (object 0) and the floor plane (object 1):
-  `light_t`, `light_inv_t`, `light_size`, `light_color`, `floor_inv_to`.
+  `light_t`, `light_inv_t`, `light_size`, `light_color`, `floor_inv_to`;
+* `shadow_quirk`: shadow rays test triangles to RAY_FAR instead of to the
+  light (the reference's file_scene.cpp:177-187; the JAX package's
+  default, `cpu_ray_tracer_tpu/scene/types.py:95`);
+* `kernel_params`: the light, floor and material scalars packed once for
+  the wavefront and Whitted kernels (`ops/surface.kernel_params`).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 from cpu_ray_tracer_tpu_torch.accel.pack import N_COUNT, PackedBVH
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
+from cpu_ray_tracer_tpu_torch.ops import surface
 
 
 @dataclasses.dataclass
@@ -51,6 +57,7 @@ class DeviceScene(nn.Module):
         light_color: np.ndarray,
         floor_inv_to: float,
         skydome_tex: int,
+        shadow_quirk: bool = True,
     ):
         super().__init__()
 
@@ -89,6 +96,8 @@ class DeviceScene(nn.Module):
         buf("light_size", np.float32(light_size), np.float32)
         buf("light_color", light_color, np.float32)
         buf("floor_inv_to", np.float32(floor_inv_to), np.float32)
+        self.shadow_quirk = bool(shadow_quirk)
+        self.register_buffer("kernel_params", surface.kernel_params(self))
 
     @property
     def device(self) -> torch.device:

@@ -18,9 +18,9 @@ import torch
 from cpu_ray_tracer_tpu.ops.pallas import packet_bvh
 from cpu_ray_tracer_tpu_torch.accel import pack
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
+from cpu_ray_tracer_tpu_torch.ops import intersect
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit, closest_hit_plain
 from cpu_ray_tracer_tpu_torch.render import pathtracer
-from cpu_ray_tracer_tpu_torch.scene import query
 from cpu_ray_tracer_tpu_torch.scene.convert import scene_from_arrays
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from torch_parity import (
@@ -46,7 +46,7 @@ def _rays(kind, port):
     if kind == "primary":
         cam = cam_mod.make_camera(64, 40, **BENCH_CAMERA)
         o, d, _ = pathtracer.camera_rays(cam, 2)
-        t0, _ = query.primitive_hits(port, o, d)
+        t0, _ = intersect.primitive_hits(port, o, d)
         return o.numpy(), d.numpy(), t0.numpy(), np.ones(o.shape[0], bool)
     bmin, bmax = node_bounds(port.nodes.numpy())
     if kind == "random":

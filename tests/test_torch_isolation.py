@@ -55,3 +55,29 @@ def test_no_blocked_import_statement(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BLOCKED, f"{path.name}: import {name}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PKG / "ops").glob("*.py")), ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_kernel_layer_imports_no_layer_above(path):
+    """`ops/` (the kernels, their wrappers and plain versions) imports
+    nothing of `scene/` or `render/`, which are built on it."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        for name in names:
+            for above in ("scene", "render"):
+                assert not name.startswith(f"{PKG.name}.{above}"), f"{path.name}: import {name}"
+
+
+def test_every_kernel_module_is_covered():
+    """The wrappers, plain versions and renderers of every ported kernel
+    are among the modules imported above."""
+    for name in ("ops.closest_hit", "ops.wavefront_pt", "ops.whitted_wf", "ops.surface",
+                 "ops.kernel_lib", "render.pathtracer", "render.whitted"):
+        assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -45,7 +45,10 @@ def _check(name, scene, ref_img, ref_rays):
     img, stats = pathtracer.render_pass(scene, camera, salt)
     assert stats["rays_traced"] == ref_rays
     assert bool(torch.isfinite(img).all()) and float(img.sum()) > 0
-    cmp = borderline.unexplained_pixels(scene, camera, salt, img, torch.tensor(ref_img))
+    cmp = borderline.unexplained_pixels(
+        lambda o, d, s: pathtracer.sample_radiance(scene, o, d, s)[0],
+        pathtracer.camera_rays(camera, salt), img, torch.tensor(ref_img),
+    )
     assert cmp["unexplained"].numel() == 0, (
         f"pixels {cmp['unexplained'].tolist()} differ and are not fp-borderline"
     )

@@ -107,7 +107,10 @@ def test_scene_from_arrays_equals_port_compile(pair):
     got = carried.state_dict()
     assert got.keys() == want.keys()
     for k in want:
-        assert torch.equal(got[k], want[k]), k
+        g, w = got[k], want[k]
+        if g.dtype == torch.float32:  # kernel_params bit-casts ints (NaN patterns)
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), k
     assert (carried.root, carried.depth, carried.skydome_tex) == (port.root, port.depth, port.skydome_tex)
 
 

@@ -28,14 +28,14 @@ def jax_reference_env(mp: pytest.MonkeyPatch) -> None:
     mp.setattr(native, "get_lib", lambda: None)
 
 
-def jax_compile(xml: str):
-    """JAX `compile_scene(layout="tlas", use_pallas=True)` in the reference
-    configuration."""
+def jax_compile(xml: str, **kwargs):
+    """JAX `compile_scene(layout="tlas", use_pallas=True, **kwargs)` in the
+    reference configuration."""
     from cpu_ray_tracer_tpu.scene.build import compile_scene
 
     with pytest.MonkeyPatch.context() as mp:
         jax_reference_env(mp)
-        return compile_scene(xml, layout="tlas", use_pallas=True)
+        return compile_scene(xml, layout="tlas", use_pallas=True, **kwargs)
 
 
 def jax_scene_arrays(scene):
@@ -57,5 +57,8 @@ def jax_scene_arrays(scene):
     if pk.node_nearfar is not None:
         arrays["packed.node_nearfar"] = pk.node_nearfar
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
-    meta = dict(root=pk.root, stack_depth=pk.stack_depth, skydome_tex=scene.skydome_tex)
+    meta = dict(
+        root=pk.root, stack_depth=pk.stack_depth, skydome_tex=scene.skydome_tex,
+        shadow_quirk=scene.shadow_quirk,
+    )
     return arrays, meta
