@@ -36,11 +36,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the path tracer at `wavefront_depths` 0 and 1 (`rays_traced` exact) and
    Whitted, images within the parity tolerance except fp-borderline pixels.
 
+The accelerator interchange, on the same scene and camera:
+
+3b. the link walk (closest and any hit) on the `grid` and `kdtree` cell
+    forests and the wide walk on the `wide=True` BVH, each against its
+    plain version on the card: on the primary rays, on the live bounce
+    rays after the first hit, and on the any-hit arguments of a Whitted
+    host-route frame at levels 0 and 1 (recorded); integers exact, floats
+    within 1e-6 relative; times of both;
+4b. the path tracer at 1280x720, depth 5, for `grid`, `kdtree` and
+    `wide=True` at `wavefront_depths=0` and for `wide="bounce"` at its
+    default, beside the binary BVH at `wavefront_depths=0` as the
+    reference: one warm-up pass each, then 8 passes each in turns; ms per
+    pass, rays/s, energy and launches per pass; `rays_traced` within 1e-4
+    relative of the reference's, energy within 1e-3;
+5b. Whitted's host route for `grid`, `kdtree` and `wide=True`, in turns
+    with the binary BVH's host route as the reference, 4 frames each after
+    a warm-up frame: `dropped` 0, each image within the parity tolerance of
+    the reference's except pixels fp-borderline on either;
+6b. 64x40 card against CPU for the four configurations: path tracer
+    (`rays_traced` exact) and Whitted, at their defaults.
+
 Each drive of a main path (one pass or one frame) sets every kernel's
 launch count to 0 just before it and reads the counts just after; every
 kernel of the path must have launched.
-The line before the last is `{"kernels": [...]}`; the last line is
-`{"ok": true, "device": {...}}`.
+The line before the last is `{"kernels": [...]}`: per kernel its
+launches on the main paths, its time and its plain version's on the
+main path's inputs (phase 3), and its bound: the larger of the bytes it
+must move (its ray inputs, the scene tables it reads and its outputs,
+each once) over 3.35 TB/s and the float32 operations of its walk on these
+inputs (31 per slab test and 58 per Moller-Trumbore test of
+`csrc/ptraverse.cuh`, times the steps and tests the rays took, from the
+kernel's own counters) over 67 TFLOP/s (NVIDIA H100 SXM, at 700 W).  No
+single PyTorch call computes a BVH walk: `library_ms` is null.  The last
+line is `{"ok": true, "device": {...}}`.
 """
 
 import copy
@@ -57,6 +86,16 @@ WIDTH, HEIGHT, DEPTH, PASSES, FRAMES = 1280, 720, 5, 16, 8
 WAVEFRONT_DEPTHS = (0, 1, 6)
 KERNEL_REPEATS = 20
 PKG = "cpu_ray_tracer_tpu_torch"
+# the accelerator interchange: compile_scene arguments, the walk's kernels
+ACCELS = {"grid": dict(accel="grid"), "kdtree": dict(accel="kdtree"), "wide": dict(wide=True)}
+ACCEL_PASSES, ACCEL_FRAMES = 8, 4
+# the bound (NVIDIA H100 SXM data sheet): device memory rate, float32 rate
+# outside the tensor cores; float32 operations per test, read off
+# csrc/ptraverse.cuh: a slab test is 12 subtract/multiply, 10 min/max, 3
+# compares and 6 NaN tests; a Moller-Trumbore test 58 (cross products,
+# dots, one division, the acceptance compares)
+BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+SLAB_OPS, MT_OPS = 31, 58
 
 
 def card() -> str:
@@ -81,15 +120,41 @@ def time_cuda(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def compare(name: str, label: str, kernel, plain, n: int) -> dict:
+def nbytes(*xs) -> int:
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
+
+
+def bound(inputs: list, tables: list, got, counters: dict, slabs: int, n: int) -> dict:
+    """The least time the card could take for a walk kernel's call: bytes
+    (inputs, tables, outputs, each once) over the memory rate against the
+    walk's float32 operations (`slabs` slab tests per step, one
+    Moller-Trumbore test per triangle test, three reciprocals per ray)
+    over the float32 rate."""
+    outs = list(got.values()) if isinstance(got, dict) else [got]
+    moved = nbytes(*inputs, *tables, *outs)
+    ops = (slabs * SLAB_OPS * int(counters["traversed"].sum())
+           + MT_OPS * int(counters["tested"].sum()) + 3 * n)
+    t_bytes, t_ops = 1e3 * moved / BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=moved, ops=ops)
+
+
+def compare(name: str, label: str, kernel, plain, n: int, work=None) -> dict:
     """`kernel()` against `plain()` on the card: every integer and bool
-    output exact, every float within 1e-6 relative; both timed."""
+    output exact, every float within 1e-6 relative; both timed.  `work(got)`
+    gives the call's bound (`bound`)."""
     import torch
 
     got = kernel()
     torch.cuda.synchronize()
-    want = plain()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()  # timed once: the plain version repeats the kernel's arithmetic
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     if not isinstance(got, dict):
         got, want = {"out": got}, {"out": want}
     max_err, bitwise = 0.0, 0
@@ -112,10 +177,12 @@ def compare(name: str, label: str, kernel, plain, n: int) -> dict:
             if bad:
                 raise AssertionError(f"{name} {label}: {key} differs on {bad} of {g.numel()}")
     ms = time_cuda(kernel, KERNEL_REPEATS)
-    plain_ms = time_cuda(plain, 1)
+    b = work(got["out"] if set(got) == {"out"} else got) if work else {}
+    extra = (f", bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} bytes, "
+             f"{b['ops']} float32 ops), share {b['bound_ms'] / ms:.4f}") if b else ""
     print(f"{name} {label}: {n} rays, integers exact, bitwise float mismatches {bitwise}, "
-          f"max abs err {max_err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, got=got)
+          f"max abs err {max_err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms{extra}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, got=got, **b)
 
 
 class Recorder:
@@ -169,7 +236,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
-    from cpu_ray_tracer_tpu_torch.ops import intersect, kernel_lib, wavefront_pt, whitted_wf
+    from cpu_ray_tracer_tpu_torch.ops import (
+        closest_hit as stack_walk, intersect, kernel_lib, link_walk, wavefront_pt, whitted_wf,
+        wide_bvh,
+    )
     from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
         closest_hit, closest_hit_plain, occluded, occluded_plain,
     )
@@ -178,7 +248,10 @@ def main() -> int:
     from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 
     kernels = dict(closest_hit=closest_hit, occluded=occluded,
-                   wavefront_pt=wavefront_pt.trace, whitted_wf=whitted_wf.trace_level0)
+                   wavefront_pt=wavefront_pt.trace, whitted_wf=whitted_wf.trace_level0,
+                   closest_hit_links=link_walk.closest_hit_links,
+                   occluded_links=link_walk.occluded_links,
+                   closest_hit_wide=wide_bvh.closest_hit_wide, occluded_wide=wide_bvh.occluded_wide)
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     print(card())
@@ -193,26 +266,61 @@ def main() -> int:
 
     # --- 3. each kernel against its plain version, main-path inputs --------
     start = time.perf_counter()
-    cpu_scene, info = compile_scene(XML)
+    cpu_scene, info = compile_scene(XML, device="cpu")
     print(f"scene: {info}, compiled in {time.perf_counter() - start:.2f} s")
     scene = copy.deepcopy(cpu_scene).to(dev)
     camera = cam_mod.make_camera(WIDTH, HEIGHT, **CAMERA)
     o, d, seeds = pathtracer.camera_rays(camera, 1, dev)
     t0, _ = intersect.primitive_hits(scene, o, d)
     n = o.shape[0]
+    everyone = torch.ones(n, dtype=torch.bool, device=dev)
     res = {}
-    res["closest_hit"] = compare("closest_hit", "primary", lambda: closest_hit(scene, o, d, t0),
-                                 lambda: closest_hit_plain(scene, o, d, t0), n)
-    state = pathtracer.bounce_step(scene, pathtracer.initial_state(o, d, seeds), 0, DEPTH)
-    live = torch.nonzero(state["alive"]).squeeze(1)
-    live = live[pathtracer.locus_order(state["d"][live], state["locus"][live])]
-    bo, bd = state["o"][live].contiguous(), state["d"][live].contiguous()
-    bt0, _ = intersect.primitive_hits(scene, bo, bd)
-    compare("closest_hit", "bounce", lambda: closest_hit(scene, bo, bd, bt0),
-            lambda: closest_hit_plain(scene, bo, bd, bt0), bo.shape[0])
-    res["wavefront_pt"] = compare(
-        "wavefront_pt", "k=1 primary", lambda: wavefront_pt.trace(scene, o, d, seeds, 1, DEPTH),
-        lambda: wavefront_pt.trace_plain(scene, o, d, seeds, 1, DEPTH), n)
+
+    def keep(key, r):
+        """The first result of a kernel stands in the kernels line; later
+        ones add their error."""
+        if key in res:
+            res[key]["max_abs_err"] = max(res[key]["max_abs_err"], r["max_abs_err"])
+        else:
+            res[key] = r
+
+    def work_of(args, names, slabs, any_walk=None):
+        """work(got) of a walk kernel's call with positional `args` (scene
+        first): its tensors in, the scene tables `names`, its outputs; the
+        steps and tests from its own counters, or for an any-hit kernel
+        from its plain walk's (`any_walk`)."""
+        sc = args[0]
+
+        def work(got):
+            counters = got if any_walk is None else any_walk(*args[:5], any_hit=True)
+            return bound(list(args[1:]), [getattr(sc, nm) for nm in names], got, counters,
+                         slabs, args[1].shape[0])
+        return work
+
+    def bounce_rays(sc):
+        """The live rays after the first hit, in the order the path tracer
+        launches them, with their t0 and mask."""
+        state = pathtracer.bounce_step(sc, pathtracer.initial_state(o, d, seeds), 0, DEPTH)
+        live = torch.nonzero(state["alive"]).squeeze(1)
+        live = live[pathtracer.locus_order(state["d"][live], state["locus"][live])]
+        bo, bd = state["o"][live].contiguous(), state["d"][live].contiguous()
+        bt0, _ = intersect.primitive_hits(sc, bo, bd)
+        return sc, bo, bd, bt0, torch.ones(bo.shape[0], dtype=torch.bool, device=dev)
+
+    stack_tables = ("nodes", "tris", "shade")
+    args = (scene, o, d, t0, everyone)
+    keep("closest_hit", compare("closest_hit", "primary", lambda: closest_hit(*args),
+                                lambda: closest_hit_plain(*args), n,
+                                work_of(args, stack_tables, 2)))
+    bargs = bounce_rays(scene)
+    keep("closest_hit", compare("closest_hit", "bounce", lambda: closest_hit(*bargs),
+                                lambda: closest_hit_plain(*bargs), bargs[1].shape[0],
+                                work_of(bargs, stack_tables, 2)))
+    wf_args = (scene, o, d, seeds)
+    keep("wavefront_pt", compare(
+        "wavefront_pt", "k=1 primary", lambda: wavefront_pt.trace(*wf_args, 1, DEPTH),
+        lambda: wavefront_pt.trace_plain(*wf_args, 1, DEPTH), n,
+        work_of(wf_args, (*stack_tables, "kernel_params"), 2)))
     m = 65536  # every 14th primary ray: the whole frame, not its top rows of sky
     so6, sd6, ss6 = (x[::14][:m].contiguous() for x in (o, d, seeds))
     wf6 = compare(
@@ -227,24 +335,61 @@ def main() -> int:
     wf_calls = recorded(whitted_wf, "trace_level0",
                         lambda: whitted.render(scene, camera, DEPTH, True))
     occ_calls = recorded(query, "occluded", lambda: whitted.render(scene, camera, DEPTH, False))
-    for key, kernel, plain, calls in (
-        ("whitted_wf", whitted_wf.trace_level0, whitted_wf.trace_level0_plain, wf_calls),
-        ("occluded", occluded, occluded_plain, occ_calls),
+    for key, kernel, plain, calls, work in (
+        ("whitted_wf", whitted_wf.trace_level0, whitted_wf.trace_level0_plain, wf_calls,
+         lambda a: work_of(a, (*stack_tables, "kernel_params"), 2)),
+        ("occluded", occluded, occluded_plain, occ_calls,
+         lambda a: work_of(a, stack_tables[:2], 2, stack_walk._walk_plain)),
     ):
         for level in (0, 1):
             args, kwargs = calls[level]
             r = compare(key, f"Whitted level {level}", lambda f=kernel: f(*args, **kwargs),
-                        lambda f=plain: f(*args, **kwargs), args[1].shape[0])
+                        lambda f=plain: f(*args, **kwargs), args[1].shape[0], work(args))
             if key == "whitted_wf":
                 print(f"  inside {int(args[3].sum())}, diffuse surfaces lit "
                       f"{int(r['got']['vis'].sum())}")
             else:
                 print(f"  mask {int(args[4].sum())}, occluded {int(r['got']['out'].sum())}")
-            if level == 0:
-                res[key] = r
-            else:
-                res[key]["max_abs_err"] = max(res[key]["max_abs_err"], r["max_abs_err"])
+            keep(key, r)
     wo, wd = cam_mod.full_frame_rays(camera, device=dev)
+
+    # --- 3b. the link walk and the wide walk, main-path inputs --------------
+    cpu_scenes, gpu_scenes = {}, {}
+    for acc, kwargs in (*ACCELS.items(), ("bounce", dict(wide="bounce"))):
+        start = time.perf_counter()
+        cpu_scenes[acc], info_a = compile_scene(XML, device="cpu", **kwargs)
+        gpu_scenes[acc] = copy.deepcopy(cpu_scenes[acc]).to(dev)
+        print(f"scene {acc}: {info_a}, walk {gpu_scenes[acc].walk}, wide nodes "
+              f"{0 if gpu_scenes[acc].wide_nodes is None else gpu_scenes[acc].wide_nodes.shape[0]}"
+              f", roots {gpu_scenes[acc].roots}, compiled in {time.perf_counter() - start:.2f} s")
+    for acc in ACCELS:
+        sc = gpu_scenes[acc]
+        if sc.walk == "links":
+            mod, suffix, slabs, names = link_walk, "links", 1, ("nodes", "links", "tris", "shade")
+        else:
+            mod, suffix, slabs, names = wide_bvh, "wide", 8, ("wide_nodes", "wide_roots", "tris",
+                                                             "shade")
+        kc, ko = f"closest_hit_{suffix}", f"occluded_{suffix}"
+        ch, ch_plain = getattr(mod, kc), getattr(mod, f"{kc}_plain")
+        oc, oc_plain = getattr(mod, ko), getattr(mod, f"{ko}_plain")
+        at0, _ = intersect.primitive_hits(sc, o, d)
+        for label, a in (("primary", (sc, o, d, at0, everyone)), ("bounce", bounce_rays(sc))):
+            r = compare(kc, f"{acc} {label}", lambda a=a: ch(*a), lambda a=a: ch_plain(*a),
+                        a[1].shape[0], work_of(a, names, slabs))
+            print(f"  mean steps {float(r['got']['traversed'].float().mean()):.3f}, tests "
+                  f"{float(r['got']['tested'].float().mean()):.3f}, hits "
+                  f"{int((r['got']['slot'] >= 0).sum())}")
+            keep(kc, r)
+        # the any-hit arguments of a Whitted frame on the host route, the
+        # only route these scenes take
+        calls = recorded(query, ko, lambda sc=sc: whitted.render(sc, camera, DEPTH))
+        for level in (0, 1):
+            a = calls[level][0]
+            r = compare(ko, f"{acc} Whitted level {level}", lambda a=a: oc(*a),
+                        lambda a=a: oc_plain(*a), a[1].shape[0],
+                        work_of(a, names[:-1], slabs, mod._walk_plain))
+            print(f"  mask {int(a[4].sum())}, occluded {int(r['got']['out'].sum())}")
+            keep(ko, r)
 
     # --- 4. the path tracer's main path --------------------------------------
     # The configurations run in turns, pass by pass (0, 1, 6, 6, 1, 0, ...),
@@ -305,6 +450,51 @@ def main() -> int:
         raise AssertionError(
             f"rays_traced differs across wavefront_depths: { {k: r['rays'] for k, r in runs.items()} }")
 
+    # --- 4b. the path tracer over the other accelerators, in turns ---------
+    # (scene, wavefront_depths, kernels the pass must launch); the binary
+    # BVH at wavefront_depths=0 is the reference
+    configs = {
+        "bvh k=0": (scene, 0, ["closest_hit"]),
+        "grid k=0": (gpu_scenes["grid"], 0, ["closest_hit_links"]),
+        "kdtree k=0": (gpu_scenes["kdtree"], 0, ["closest_hit_links"]),
+        "wide k=0": (gpu_scenes["wide"], 0, ["closest_hit_wide"]),
+        "bounce default": (gpu_scenes["bounce"], None, ["wavefront_pt", "closest_hit_wide"]),
+    }
+    runs_b = {label: dict(seconds=[], rays=0, counts={}, film=torch.zeros(
+        (HEIGHT, WIDTH, 3), dtype=torch.float32, device=dev)) for label in configs}
+    for sc, kd, _ in configs.values():
+        pathtracer.render_pass(sc, camera, 100, DEPTH, kd)  # warm-up
+    for i, label in enumerate(turns(list(configs), ACCEL_PASSES)):
+        sc, kd, expected = configs[label]
+        (img, stats), seconds, counts = drive(
+            label, lambda sc=sc, kd=kd, p=i // len(configs): pathtracer.render_pass(
+                sc, camera, p + 1, DEPTH, kd),
+            expected,
+        )
+        r = runs_b[label]
+        r["film"] += img
+        r["rays"] += stats["rays_traced"]
+        r["seconds"].append(seconds)
+        r["counts"] = {key: r["counts"].get(key, 0) + c for key, c in counts.items() if c}
+    ref = runs_b["bvh k=0"]
+    ref_energy = float(ref["film"].sum()) / ACCEL_PASSES
+    for label, r in runs_b.items():
+        energy = float(r["film"].sum()) / ACCEL_PASSES
+        total = sum(r["seconds"])
+        print(
+            f"render_pass {WIDTH}x{HEIGHT} depth {DEPTH} {label}: {ACCEL_PASSES} passes, "
+            f"{1e3 * total / ACCEL_PASSES:.2f} ms/pass (median "
+            f"{1e3 * sorted(r['seconds'])[ACCEL_PASSES // 2]:.2f}), rays_traced {r['rays']}, "
+            f"{r['rays'] / total:.4g} rays/s, energy {energy:.6g}, launches per pass "
+            f"{ {key: c / ACCEL_PASSES for key, c in r['counts'].items()} }"
+        )
+        if not bool(torch.isfinite(r["film"]).all()) or energy <= 0.0:
+            raise AssertionError(f"{label}: bad film, energy {energy}")
+        if abs(r["rays"] - ref["rays"]) > 1e-4 * ref["rays"]:
+            raise AssertionError(f"{label}: rays_traced {r['rays']}, the binary BVH {ref['rays']}")
+        if abs(energy - ref_energy) > 1e-3 * ref_energy:
+            raise AssertionError(f"{label}: energy {energy}, the binary BVH {ref_energy}")
+
     # --- 5. the Whitted tracer's main path, both level routes in turns -------
     frames = {lk: dict(seconds=[], counts={}) for lk in (True, False)}
     images = {}
@@ -357,6 +547,54 @@ def main() -> int:
     if unexplained.numel():
         raise AssertionError("the two Whitted level routes disagree")
 
+    # --- 5b. Whitted's host route over the other accelerators --------------
+    # in turns with the binary BVH's host route, the reference
+    walk_kernels = dict(stack=["closest_hit", "occluded"],
+                        links=["closest_hit_links", "occluded_links"],
+                        wide=["closest_hit_wide", "occluded_wide"])
+    host_scenes = dict(bvh=scene, **{acc: gpu_scenes[acc] for acc in ACCELS})
+    frames_b = {acc: dict(seconds=[], counts={}) for acc in host_scenes}
+    for sc in host_scenes.values():
+        whitted.render(sc, camera, DEPTH, False)  # warm-up
+    for acc in turns(list(host_scenes), ACCEL_FRAMES):
+        sc = host_scenes[acc]
+        out, seconds, counts = drive(
+            f"whitted {acc}", lambda sc=sc: whitted.render(sc, camera, DEPTH, False),
+            walk_kernels[sc.walk],
+        )
+        f = frames_b[acc]
+        f["seconds"].append(seconds)
+        f["counts"] = {key: f["counts"].get(key, 0) + c for key, c in counts.items() if c}
+        f["out"] = out
+    img_h = frames_b["bvh"]["out"]["image"].cpu()
+    for acc, f in frames_b.items():
+        out, img = f["out"], f["out"]["image"]
+        if out["dropped"] != 0 or not bool(torch.isfinite(img).all()) or float(img.sum()) <= 0:
+            raise AssertionError(f"whitted {acc}: bad frame")
+        sc = host_scenes[acc]
+        cmp = borderline.unexplained_pixels(
+            lambda oo, dd, _, sc=sc: whitted.radiance(sc, oo, dd, DEPTH, False)[0],
+            (wo, wd, None), img.cpu(), img_h)
+        bad = cmp["bad"]
+        near_a = ~torch.isin(bad, cmp["unexplained"])
+        near_h = torch.zeros_like(near_a)
+        if bad.numel():
+            idx = bad.to(dev)
+            near_h = borderline.nudge_sensitive(routes[1], wo[idx], wd[idx], None)
+        unexplained = bad[~near_a & ~near_h]
+        print(
+            f"whitted {WIDTH}x{HEIGHT} depth {DEPTH} {acc} (host route): {ACCEL_FRAMES} frames, "
+            f"{1e3 * sum(f['seconds']) / ACCEL_FRAMES:.2f} ms/frame, rays {out['rays']} in "
+            f"{out['levels']} levels, energy {float(img.sum()):.6g}, dropped {out['dropped']}, "
+            f"launches per frame { {key: c / ACCEL_FRAMES for key, c in f['counts'].items()} }; "
+            f"against the binary host route: pixels beyond tolerance {bad.numel()}, "
+            f"fp-borderline on {acc} {int(near_a.sum())}, on the binary BVH {int(near_h.sum())}, "
+            f"on neither {unexplained.numel()}"
+        )
+        if unexplained.numel():
+            raise AssertionError(f"whitted {acc} disagrees with the binary BVH at "
+                                 f"{unexplained[:16].tolist()}")
+
     # --- 6. card (kernels) against CPU (plain versions) ----------------------
     small = cam_mod.make_camera(64, 40, **CAMERA)
     for kd in (0, 1):
@@ -364,7 +602,7 @@ def main() -> int:
         img_cpu, st_cpu = pathtracer.render_pass(cpu_scene, small, 1, DEPTH, kd)
         cmp = borderline.unexplained_pixels(
             lambda oo, dd, ss, kd=kd: pathtracer.sample_radiance(cpu_scene, oo, dd, ss, DEPTH, kd)[0],
-            pathtracer.camera_rays(small, 1), img_gpu.cpu(), img_cpu)
+            pathtracer.camera_rays(small, 1, "cpu"), img_gpu.cpu(), img_cpu)
         print(
             f"render_pass 64x40 wavefront_depths={kd} cuda vs cpu: rays_traced "
             f"{st_gpu['rays_traced']} vs {st_cpu['rays_traced']}, pixels beyond tolerance "
@@ -374,7 +612,7 @@ def main() -> int:
             raise AssertionError("the card's render differs from the CPU's")
     w_gpu = whitted.render(scene, small, DEPTH)["image"].cpu()
     w_cpu = whitted.render(cpu_scene, small, DEPTH)["image"]
-    so_, sd_ = cam_mod.full_frame_rays(small)
+    so_, sd_ = cam_mod.full_frame_rays(small, device="cpu")
     cmp = borderline.unexplained_pixels(
         lambda oo, dd, _: whitted.radiance(cpu_scene, oo, dd, DEPTH)[0], (so_, sd_, None),
         w_gpu, w_cpu)
@@ -382,11 +620,37 @@ def main() -> int:
           f"not fp-borderline {cmp['unexplained'].numel()}")
     if cmp["unexplained"].numel():
         raise AssertionError("the card's Whitted render differs from the CPU's")
+    # 6b. the four configurations of the interchange, at their defaults
+    for acc, sc_gpu in gpu_scenes.items():
+        sc_cpu = cpu_scenes[acc]
+        img_gpu, st_gpu = pathtracer.render_pass(sc_gpu, small, 1, DEPTH)
+        img_cpu, st_cpu = pathtracer.render_pass(sc_cpu, small, 1, DEPTH)
+        cmp = borderline.unexplained_pixels(
+            lambda oo, dd, ss, sc=sc_cpu: pathtracer.sample_radiance(sc, oo, dd, ss, DEPTH)[0],
+            pathtracer.camera_rays(small, 1, "cpu"), img_gpu.cpu(), img_cpu)
+        w_gpu = whitted.render(sc_gpu, small, DEPTH)["image"].cpu()
+        w_cpu = whitted.render(sc_cpu, small, DEPTH)["image"]
+        wcmp = borderline.unexplained_pixels(
+            lambda oo, dd, _, sc=sc_cpu: whitted.radiance(sc, oo, dd, DEPTH)[0],
+            (so_, sd_, None), w_gpu, w_cpu)
+        print(
+            f"{acc} 64x40 cuda vs cpu: render_pass rays_traced {st_gpu['rays_traced']} vs "
+            f"{st_cpu['rays_traced']}, pixels beyond tolerance {cmp['bad'].numel()}, not "
+            f"fp-borderline {cmp['unexplained'].numel()}; whitted pixels beyond tolerance "
+            f"{wcmp['bad'].numel()}, not fp-borderline {wcmp['unexplained'].numel()}"
+        )
+        if (st_gpu["rays_traced"] != st_cpu["rays_traced"] or cmp["unexplained"].numel()
+                or wcmp["unexplained"].numel()):
+            raise AssertionError(f"{acc}: the card's render differs from the CPU's")
 
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    wavefront_pt=("wavefront_pt.cu", "ops/pallas/wavefront_pt.py:165"),
-                   whitted_wf=("whitted_wf.cu", "ops/pallas/whitted_wf.py:70"))
+                   whitted_wf=("whitted_wf.cu", "ops/pallas/whitted_wf.py:70"),
+                   closest_hit_links=("link_walk.cu", "ops/pallas/packet_bvh.py:133"),
+                   occluded_links=("link_walk.cu", "ops/pallas/packet_bvh.py:133"),
+                   closest_hit_wide=("wide_bvh.cu", "ops/pallas/wide_bvh.py:54"),
+                   occluded_wide=("wide_bvh.cu", "ops/pallas/wide_bvh.py:54"))
     for key, count in launches.items():
         if count == 0:
             raise AssertionError(f"{key} was never launched on a main path")
@@ -399,6 +663,9 @@ def main() -> int:
         "max_abs_err": res[key]["max_abs_err"],
         "ms": res[key]["ms"],
         "plain_ms": res[key]["plain_ms"],
+        "bound_ms": res[key]["bound_ms"],
+        "bound_by": res[key]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a BVH walk
     } for key, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -20,6 +20,9 @@ falls back to a median split, bounding the leaf size.  Both values are the
 ones the JAX package's compiler sets for its packed kernel tables
 (scene/build.py:107-111 there).
 
+`thread_links` threads a tree or forest with per-octant hit and miss
+links for the link walk (`ops/link_walk.py`).
+
 The native C++ builder, the SBVH spatial-split build and the build
 statistics of the JAX package are not ported yet (ROADMAP).
 """
@@ -170,3 +173,45 @@ def build_bvh(tri_v: np.ndarray):
         stack.append(li)
 
     return bvh.trim(), idx
+
+
+def thread_links(left, right, tri_count, axis, roots=None) -> tuple[np.ndarray, np.ndarray]:
+    """Per-octant hit and miss links of a threaded tree or forest, as the
+    numpy path of the JAX package's `thread_links`: int32 (hit [8, M],
+    miss [8, M]).  For octant `o` (bit a set: the direction is negative
+    along axis a) the depth-first order visits each interior node's near
+    child first, the left (lower) child when the direction is not negative
+    along the node's split axis (infra/bvh.cpp:245-249).  A forest's trees
+    are chained in `roots` order: finishing one continues at the next root.
+
+    A node with no children and no triangles is refused: the JAX package
+    would thread it as an interior node whose hit link is -1 and end the
+    walk there."""
+    m = left.shape[0]
+    roots = [0] if roots is None else [int(r) for r in roots]
+    is_leaf = tri_count > 0
+    empty = np.nonzero((left < 0) & ~is_leaf)[0]
+    if empty.size:
+        raise ValueError(f"node {int(empty[0])} has neither children nor triangles")
+    hit = np.full((8, m), -1, np.int32)
+    miss = np.full((8, m), -1, np.int32)
+    for o in range(8):
+        neg = [(o >> a) & 1 for a in range(3)]
+        ho, mo = hit[o], miss[o]
+        # (node, exit link); root i exits into root i + 1
+        stack = [(roots[i], roots[i + 1] if i + 1 < len(roots) else -1)
+                 for i in range(len(roots) - 1, -1, -1)]
+        while stack:
+            node, ex = stack.pop()
+            mo[node] = ex
+            if is_leaf[node]:
+                ho[node] = ex
+                continue
+            if neg[int(axis[node])]:
+                near, far = int(right[node]), int(left[node])
+            else:
+                near, far = int(left[node]), int(right[node])
+            ho[node] = near
+            stack.append((near, far))
+            stack.append((far, ex))
+    return hit, miss

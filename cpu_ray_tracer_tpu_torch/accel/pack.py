@@ -15,10 +15,16 @@ fields it needs from one or two 32-byte sectors:
   slots leaf after leaf in node order, unpadded;
 * `shade` float32 [S, 16]: n0 n1 n2 uv0 uv1 uv2, and in lane 15 the meta
   word `tri | obj << 20 | mat << 26` bit-cast, as the JAX package's
-  `pack_host` stores it.
+  `pack_host` stores it;
+* for a tree walked by hit/miss links (the grid and KD cell forests,
+  `accel/cell_tree.py`), `links` int32 [M, 16]: words 2*o and 2*o + 1 the
+  hit and miss link for ray-direction octant o (64 bytes per node; the
+  JAX package's `node_links` [8, 2, M]), and the forest's root list.
 
 Node numbering and the triangle order inside each leaf are the JAX
-package's, so the two packages' tables compare one to one.
+package's, so the two packages' tables compare one to one.  Every
+accelerator uses the same `tris` / `shade` slot layout, so hit ids decode
+the same way whichever walk found the slot.
 """
 
 from __future__ import annotations
@@ -44,7 +50,9 @@ class PackedBVH:
     tris: np.ndarray  # float32 [S, 9]
     shade: np.ndarray  # float32 [S, 16], meta word bit-cast in lane 15
     root: int
-    depth: int  # tree depth, root level = 1
+    depth: int  # depth of the deepest tree, root level = 1
+    links: np.ndarray | None  # int32 [M, 16] per-octant (hit, miss) links, or None
+    roots: tuple  # the roots in walk order (one, unless a forest)
 
 
 def nearfar_from_children(left: np.ndarray, right: np.ndarray, axis: np.ndarray) -> np.ndarray:
@@ -88,12 +96,17 @@ def meta_words(obj_id: np.ndarray, mat_id: np.ndarray) -> np.ndarray:
 
 
 def make_tables(
-    node_min, node_max, first, count, nearfar, tris, shade, root: int, depth: int
+    node_min, node_max, first, count, nearfar, tris, shade, root: int, depth: int,
+    links=None, roots=None,
 ) -> PackedBVH:
-    """Assemble the node records.  `nearfar` int32 [8, 2, M]."""
+    """Assemble the node records.  `nearfar` int32 [8, 2, M]; `links`
+    (hit, miss) int32 [8, M] each, for a tree walked by links, which needs
+    no stack (so its depth is not bounded by STACK_CAP)."""
     m = node_min.shape[0]
-    if depth > STACK_CAP:
+    if links is None and depth > STACK_CAP:
         raise ValueError(f"tree depth {depth} exceeds the walk's stack capacity {STACK_CAP}")
+    if links is not None:
+        links = np.stack(links, axis=2).astype(np.int32).transpose(1, 0, 2).reshape(m, 16)
     nodes = np.zeros((m, NODE_WORDS), np.int32)
     nodes[:, N_BMIN : N_BMIN + 3] = np.asarray(node_min, np.float32).view(np.int32)
     nodes[:, N_BMAX : N_BMAX + 3] = np.asarray(node_max, np.float32).view(np.int32)
@@ -106,15 +119,18 @@ def make_tables(
         shade=np.ascontiguousarray(shade, np.float32),
         root=int(root),
         depth=int(depth),
+        links=links,
+        roots=tuple(int(r) for r in (roots or [root])),
     )
 
 
 def pack_bvh(
     node_min, node_max, left, right, axis, left_first, tri_count, tri_indices,
-    tri_v, shade16, obj_id, mat_id, root: int,
+    tri_v, shade16, obj_id, mat_id, root: int, links=None, roots=None,
 ) -> PackedBVH:
     """Pack a host BVH (or the fused TLAS forest) over triangles `tri_v`
-    [N, 3, 3] with per-triangle shading records `shade16` [N, 16]."""
+    [N, 3, 3] with per-triangle shading records `shade16` [N, 16].  A cell
+    forest passes its `links` (`bvh_builder.thread_links`) and `roots`."""
     leaf_ids = np.nonzero(tri_count > 0)[0]
     # slots: leaf after leaf in node order, each leaf's triangles in its
     # tri_indices order (the JAX package's `pack_tri_rows` order, unpadded)
@@ -127,8 +143,9 @@ def pack_bvh(
     tris = np.concatenate([v0, tri_v[:, 1] - v0, tri_v[:, 2] - v0], axis=1)[slot_tri]
     shade = np.ascontiguousarray(shade16, np.float32).copy()
     shade.view(np.int32)[:, 15] = meta_words(obj_id, mat_id)
-    depth = tree_depth(left, right, root)
+    roots = [root] if roots is None else list(roots)
+    depth = max(tree_depth(left, right, r) for r in roots)
     return make_tables(
         node_min, node_max, first, tri_count, nearfar_from_children(left, right, axis),
-        tris, shade[slot_tri], root, depth,
+        tris, shade[slot_tri], root, depth, links=links, roots=roots,
     )

@@ -1,0 +1,131 @@
+"""Wide (8-ary) BVH: the binary SAH tree collapsed into nodes of up to 8
+children, for the wide walk (`ops/wide_bvh.py`, `csrc/wide_bvh.cu`).
+
+The port of the JAX package's `cpu_ray_tracer_tpu/accel/wide.py`
+(`collapse_wide`, `_octant_order`, `pack_wide_host`).  The collapse and the
+per-octant child order are the JAX package's, so the tables compare one to
+one.  The layout is one record per wide node, as a thread reads it:
+
+* `nodes` int32 [W, 64] (256 bytes per wide node, float fields bit-cast):
+  words 6k .. 6k + 5 child k's bmin xyz and bmax xyz (NaN for an empty
+  slot: every slab comparison then fails); word 48 + k child k's word;
+  word 56 + o the order word of ray-direction octant o, whose bits
+  3r .. 3r + 2 name the child slot of rank r, nearest first;
+* a child word is 0 for an empty slot, the wide node's index for an
+  interior child (never 0: node 0 is the root), and `first | count << 22`
+  for a leaf: its first slot and triangle count in the binary pack's
+  `tris` / `shade` tables (`accel/pack.py`), which the wide walk shares.
+
+The JAX package regroups each wide node's leaf triangles into contiguous
+8-triangle rows for its union-row loop (wide_bvh.py:141-152); a thread
+here tests each leaf it hits on its own, so the binary slots serve as
+they are.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+WIDE = 8  # children per wide node
+WIDE_WORDS = 64
+W_CHILD = 48
+W_ORDER = 56
+LEAF_SHIFT = 22  # leaf child word: first slot | count << LEAF_SHIFT
+# per-thread stack capacity of the wide walk (`csrc/ptraverse.cuh`
+# WIDE_STACK_CAP): a stack word (node << 8 | pending children) per level of
+# the wide tree, plus the forest's extra roots
+WIDE_STACK_CAP = 32
+
+
+@dataclasses.dataclass
+class PackedWide:
+    nodes: np.ndarray  # int32 [W, WIDE_WORDS]
+    roots: tuple  # wide roots in walk order
+    depth: int  # wide-tree depth, root level = 1
+
+
+def collapse_wide(left, right, tri_count, node_min, node_max, root: int, width: int = WIDE):
+    """Collapse a binary BVH into wide nodes, greedily: a wide node starts
+    from one binary interior node's two children and repeatedly opens its
+    largest-surface-area interior child in place until `width` slots are
+    used.  Returns (children, depth): per wide node a list of
+    (binary node, wide child index or -1 for a leaf); wide node 0 is the
+    root; depth with root level 1."""
+    ext = np.maximum(node_max - node_min, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    is_leaf = tri_count > 0
+    if is_leaf[root]:
+        return [[(root, -1)]], 1
+
+    children: list = [root]  # a binary id until the node is expanded
+    depth_of = [1]
+    i = 0
+    while i < len(children):
+        n = children[i]
+        kids = [int(left[n]), int(right[n])]
+        while len(kids) < width:
+            best, best_a = -1, -1.0
+            for j, c in enumerate(kids):
+                if not is_leaf[c] and area[c] > best_a:
+                    best, best_a = j, float(area[c])
+            if best < 0:
+                break
+            c = kids.pop(best)
+            kids.extend([int(left[c]), int(right[c])])
+        out = []
+        for c in kids:
+            if is_leaf[c]:
+                out.append((c, -1))
+            else:
+                out.append((c, len(children)))
+                children.append(c)
+                depth_of.append(depth_of[i] + 1)
+        children[i] = out
+        i += 1
+    return children, max(depth_of)
+
+
+def octant_order(centers: np.ndarray, octant: int) -> np.ndarray:
+    """Near-first child order for rays in `octant` (bit a set: the
+    direction is negative along axis a): ascending projection of the child
+    box centres onto the octant's sign vector (infra/bvh.cpp:245-249 made
+    static)."""
+    sign = np.array([-1.0 if (octant >> a) & 1 else 1.0 for a in range(3)], np.float32)
+    return np.argsort(centers @ sign, kind="stable")
+
+
+def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, count) -> PackedWide:
+    """Collapse and pack a binary host BVH (the fused TLAS forest has one
+    root) whose leaves hold the binary pack's slots [first, first + count)
+    (per binary node, `accel/pack.py` N_FIRST / N_COUNT)."""
+    wide, depth = collapse_wide(left, right, tri_count, node_min, node_max, root)
+    w = len(wide)
+    roots = (0,)
+    if w >= (1 << LEAF_SHIFT):  # an interior child word must read as count 0
+        raise ValueError(f"{w} wide nodes do not fit a {LEAF_SHIFT}-bit child word")
+    if depth + len(roots) - 1 > WIDE_STACK_CAP:
+        raise ValueError(f"wide depth {depth} exceeds the walk's stack capacity {WIDE_STACK_CAP}")
+    nodes = np.zeros((w, WIDE_WORDS), np.int32)
+    boxes = np.full((w, 6 * WIDE), np.nan, np.float32)
+    for wi, kids in enumerate(wide):
+        ids = np.array([c[0] for c in kids], np.int64)
+        for slot, (bin_id, wide_child) in enumerate(kids):
+            boxes[wi, 6 * slot : 6 * slot + 3] = node_min[bin_id]
+            boxes[wi, 6 * slot + 3 : 6 * slot + 6] = node_max[bin_id]
+            if wide_child >= 0:
+                nodes[wi, W_CHILD + slot] = wide_child
+            else:
+                f, c = int(first[bin_id]), int(count[bin_id])
+                if f >= (1 << LEAF_SHIFT) or not 0 < c < (1 << (31 - LEAF_SHIFT)):
+                    raise ValueError(f"leaf of {c} triangles at slot {f} does not fit a child word")
+                nodes[wi, W_CHILD + slot] = f | (c << LEAF_SHIFT)
+        centers = (node_min[ids] + node_max[ids]) * 0.5
+        for o in range(8):
+            # ranks past the node's children name slot 0 again, which is
+            # already ranked: a repeat changes nothing
+            nodes[wi, W_ORDER + o] = sum(
+                int(s) << (3 * r) for r, s in enumerate(octant_order(centers, o)))
+    nodes[:, : 6 * WIDE] = boxes.view(np.int32)
+    return PackedWide(nodes=nodes, roots=roots, depth=depth)

@@ -1,6 +1,10 @@
-// The per-thread BVH walk shared by the port's kernels: closest hit and any
-// hit (csrc/closest_hit.cu), the wavefront path tracer (csrc/wavefront_pt.cu)
-// and the Whitted level (csrc/whitted_wf.cu).
+// The per-thread walks shared by the port's kernels.  `walk`, the binary
+// stack walk: closest hit and any hit (csrc/closest_hit.cu), the wavefront
+// path tracer (csrc/wavefront_pt.cu) and the Whitted level
+// (csrc/whitted_wf.cu).  `walk_links`, the link walk of the grid and KD
+// cell forests (csrc/link_walk.cu), and `walk_wide`, the 8-wide walk
+// (csrc/wide_bvh.cu): see their comments below.  All three share the slab
+// test, the leaf tests and the hit decoding.
 //
 // Replaces the walk the TPU kernels share: `make_traverser` of
 // cpu_ray_tracer_tpu/ops/pallas/ptraverse.py:35 (inside the wavefront and
@@ -38,6 +42,13 @@ constexpr int N_FIRST = 6;
 constexpr int N_COUNT = 7;
 constexpr int N_NEARFAR = 8;
 constexpr int STACK_CAP = 64;  // accel/pack.py STACK_CAP (asserted at pack time)
+constexpr int LINK_WORDS = 16;  // accel/pack.py links: (hit, miss) per octant
+constexpr int WIDE = 8;  // accel/wide.py: children per wide node
+constexpr int WIDE_WORDS = 64;
+constexpr int W_CHILD = 48;
+constexpr int W_ORDER = 56;
+constexpr int LEAF_SHIFT = 22;
+constexpr int WIDE_STACK_CAP = 32;  // accel/wide.py WIDE_STACK_CAP (asserted at pack time)
 constexpr float TRI_EPS = 1e-4f;
 constexpr float RAY_FAR = 1e34f;
 
@@ -62,6 +73,11 @@ struct Hit {
 };
 
 __device__ __forceinline__ Hit no_hit(float t0) { return Hit{t0, 0.0f, 0.0f, -1, 0, 0}; }
+
+// Ray-direction octant: bit a set where the direction is negative on axis a.
+__device__ __forceinline__ int octant(const Ray& r) {
+  return (r.dx < 0.0f ? 1 : 0) + (r.dy < 0.0f ? 2 : 0) + (r.dz < 0.0f ? 4 : 0);
+}
 
 // Slab test of one node against the ray, as packet_bvh.py:572-589.  There
 // jnp.minimum / jnp.maximum propagate NaN (a ray origin on a slab plane
@@ -127,7 +143,7 @@ __device__ __forceinline__ void walk(const int* __restrict__ nodes,
                                      const float* __restrict__ tris, int root, const Ray& r,
                                      Hit& h) {
   const float* fnodes = reinterpret_cast<const float*>(nodes);
-  const int oct = (r.dx < 0.0f ? 1 : 0) + (r.dy < 0.0f ? 2 : 0) + (r.dz < 0.0f ? 4 : 0);
+  const int oct = octant(r);
   const int root_count = __ldg(nodes + root * NODE_WORDS + N_COUNT);
   if (root_count > 0) {
     // a one-leaf tree: no interior node to step on; its box, then its
@@ -162,6 +178,110 @@ __device__ __forceinline__ void walk(const int* __restrict__ nodes,
       cur = far;
     } else {
       cur = sp > 0 ? stack[--sp] : -1;
+    }
+  }
+}
+
+// The link walk over a tree threaded with per-octant hit and miss links
+// (accel/cell_tree.py, accel/pack.py `links`), as the TPU's `_kernel`
+// (cpu_ray_tracer_tpu/ops/pallas/packet_bvh.py:133) walks it, per ray and
+// with the ray's own octant: visit the node, slab-test it against the
+// current t, test a hit leaf's triangles; then take the hit link where an
+// interior node was hit and the miss link otherwise, until -1.  A forest's
+// roots are chained through the miss links, so the walk starts at the
+// first root and needs no stack.  `traversed` counts every node visited.
+template <bool ANY_HIT>
+__device__ __forceinline__ void walk_links(const int* __restrict__ nodes,
+                                           const int* __restrict__ links,
+                                           const float* __restrict__ tris, int root, const Ray& r,
+                                           Hit& h) {
+  const float* fnodes = reinterpret_cast<const float*>(nodes);
+  const int* olinks = links + 2 * octant(r);
+  int cur = root;
+  while (cur >= 0) {
+    ++h.traversed;
+    const int* rec = nodes + cur * NODE_WORDS;
+    const bool hit = slab(fnodes + cur * NODE_WORDS, r, h.t);
+    const int count = __ldg(rec + N_COUNT);
+    if (hit && count > 0 && leaf_tests<ANY_HIT>(tris, __ldg(rec + N_FIRST), count, r, h)) return;
+    cur = __ldg(olinks + cur * LINK_WORDS + (hit && count == 0 ? 0 : 1));
+  }
+}
+
+// The child slot of `bits` that comes first in order word `ow` (rank k at
+// bits 3k .. 3k + 2), or -1 where `bits` is 0.
+__device__ __forceinline__ int nearest_child(int bits, int ow) {
+  for (int rank = 0; rank < WIDE; ++rank) {
+    const int s = (ow >> (3 * rank)) & 7;
+    if ((bits >> s) & 1) return s;
+  }
+  return -1;
+}
+
+// The 8-wide walk (accel/wide.py), as the TPU's `_kernel`
+// (cpu_ray_tracer_tpu/ops/pallas/wide_bvh.py:54) walks it, per ray and with
+// the ray's own octant.  A step takes one wide node: it slab-tests the 8
+// child boxes against the current t (an empty slot's NaN box fails), then
+// tests each hit leaf child's slots [first, first + count) of the binary
+// pack in child order, then goes to the nearest hit interior child under
+// the node's order word for the octant.  The other hit interior children
+// stay behind in one stack word `node << 8 | pending mask` (the TPU
+// kernel's word, wide_bvh.py:202-251); with no interior child hit, the top
+// word gives up its nearest pending child (mask 0: a forest root to enter
+// itself).  So the stack holds at most one word per level of the wide tree
+// and one per extra root, which accel/wide.py checks against
+// WIDE_STACK_CAP at pack time.  `traversed` counts wide-node steps.
+template <bool ANY_HIT>
+__device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
+                                          const int* __restrict__ roots, int n_roots,
+                                          const float* __restrict__ tris, const Ray& r, Hit& h) {
+  const float* fw = reinterpret_cast<const float*>(wnodes);
+  const int oct = octant(r);
+  int stack[WIDE_STACK_CAP];
+  int sp = 0;
+  for (int i = n_roots - 1; i >= 1; --i) stack[sp++] = __ldg(roots + i) << 8;
+  int cur = __ldg(roots);
+  while (cur >= 0) {
+    ++h.traversed;
+    const int* rec = wnodes + (size_t)cur * WIDE_WORDS;
+    int hitbits = 0;
+    for (int k = 0; k < WIDE; ++k) {
+      if (slab(fw + (size_t)cur * WIDE_WORDS + 6 * k, r, h.t)) hitbits |= 1 << k;
+    }
+    int ibits = 0;
+    for (int k = 0; k < WIDE; ++k) {
+      if (!((hitbits >> k) & 1)) continue;
+      const int c = __ldg(rec + W_CHILD + k);
+      const int count = c >> LEAF_SHIFT;
+      if (count > 0) {
+        if (leaf_tests<ANY_HIT>(tris, c & ((1 << LEAF_SHIFT) - 1), count, r, h)) return;
+      } else if (c > 0) {
+        ibits |= 1 << k;
+      }
+    }
+    const int sel = nearest_child(ibits, __ldg(rec + W_ORDER + oct));
+    if (sel >= 0) {
+      const int rest = ibits & ~(1 << sel);
+      if (rest != 0) stack[sp++] = (cur << 8) | rest;
+      cur = __ldg(rec + W_CHILD + sel);
+    } else if (sp > 0) {
+      const int p = stack[sp - 1] >> 8, pm = stack[sp - 1] & 0xFF;
+      if (pm == 0) {
+        cur = p;
+        --sp;
+      } else {
+        const int* prec = wnodes + (size_t)p * WIDE_WORDS;
+        const int s = nearest_child(pm, __ldg(prec + W_ORDER + oct));
+        cur = __ldg(prec + W_CHILD + s);
+        const int left = pm & ~(1 << s);
+        if (left != 0) {
+          stack[sp - 1] = (p << 8) | left;
+        } else {
+          --sp;
+        }
+      }
+    } else {
+      cur = -1;
     }
   }
 }

@@ -20,6 +20,11 @@ Rays with mask False do nothing: t = t0, slot -1, counters 0.
 
 Each wrapper runs the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no other fallback.
+
+The link walk (`ops/link_walk.py`) and the wide walk (`ops/wide_bvh.py`)
+answer the same queries over their own tables with the same contract,
+and share this module's pieces: the plain slab and leaf tests, the id
+decoding, and the launchers.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ _TINY = np.float32(1e-30)
 _TRI_EPS = constants.TRI_EPS
 
 
-def _outputs(t0: torch.Tensor) -> dict:
+def outputs(t0: torch.Tensor) -> dict:
+    """The closest-hit outputs of rays that hit nothing yet (t = t0)."""
     r, dev = t0.shape[0], t0.device
     i32 = dict(dtype=torch.int32, device=dev)
     return dict(
@@ -48,7 +54,7 @@ def _outputs(t0: torch.Tensor) -> dict:
     )
 
 
-def _decode(shade: torch.Tensor, res: dict) -> dict:
+def decode(shade: torch.Tensor, res: dict) -> dict:
     """Hit ids from the meta word in lane 15 of the winning slot's shading
     record (packet_bvh.py:898-908)."""
     slot = res["slot"]
@@ -61,7 +67,12 @@ def _decode(shade: torch.Tensor, res: dict) -> dict:
     return res
 
 
-def _slab(bounds, o, rd, t):
+def octants(d: torch.Tensor) -> torch.Tensor:
+    """Ray-direction octant [R] (int64): bit a set where d[:, a] < 0."""
+    return (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+
+
+def slab(bounds, o, rd, t):
     """packet_bvh.py:572-589.  torch.minimum/maximum propagate NaN as
     jnp.minimum/maximum do, and a NaN makes the test fail."""
     t1 = (bounds[:, 0:3] - o) * rd
@@ -73,7 +84,7 @@ def _slab(bounds, o, rd, t):
     return (tmax >= tmin) & (tmin < t) & (tmax > 0.0)
 
 
-def _leaf_tests(tris, ids, first, count, o, d, res):
+def leaf_tests(tris, ids, first, count, o, d, res):
     """Moller-Trumbore (packet_bvh.py:521-549) of the rays `ids` against
     their leaves' slots [first, first + count), slot k of every ray at
     once, in slot order."""
@@ -122,20 +133,20 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
     the same)."""
     nodes, tris = scene.nodes, scene.tris
     r, dev = o.shape[0], o.device
-    res = _outputs(t0)
+    res = outputs(t0)
     live = torch.ones(r, dtype=torch.bool, device=dev) if mask is None else mask.bool()
     rd = 1.0 / d
-    octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+    octant = octants(d)
     fnodes = nodes.view(torch.float32)
     if scene.root_is_leaf:
         # a one-leaf tree: no interior node to step on; its box, then its
         # triangles
         ids = torch.nonzero(live).squeeze(1)
         box = fnodes[scene.root, 0:6].expand(ids.numel(), 6)
-        ids = ids[_slab(box, o[ids], rd[ids], res["t"][ids])]
+        ids = ids[slab(box, o[ids], rd[ids], res["t"][ids])]
         rec = nodes[scene.root]
         n = ids.numel()
-        _leaf_tests(tris, ids, rec[N_FIRST].expand(n), rec[N_COUNT].expand(n), o, d, res)
+        leaf_tests(tris, ids, rec[N_FIRST].expand(n), rec[N_COUNT].expand(n), o, d, res)
         return res
 
     cur = torch.where(live, scene.root, -1).long()
@@ -150,12 +161,12 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
         near = nodes[c, col].long()
         far = nodes[c, col + 1].long()
         t = res["t"][ids]
-        hit_n = _slab(fnodes[near, 0:6], o[ids], rd[ids], t)
-        hit_f = _slab(fnodes[far, 0:6], o[ids], rd[ids], t)
+        hit_n = slab(fnodes[near, 0:6], o[ids], rd[ids], t)
+        hit_f = slab(fnodes[far, 0:6], o[ids], rd[ids], t)
         count_n, count_f = nodes[near, N_COUNT], nodes[far, N_COUNT]
         for hit, child, count in ((hit_n, near, count_n), (hit_f, far, count_f)):
             m = hit & (count > 0)
-            _leaf_tests(tris, ids[m], nodes[child[m], N_FIRST], count[m], o, d, res)
+            leaf_tests(tris, ids[m], nodes[child[m], N_FIRST], count[m], o, d, res)
         go_n = hit_n & (count_n == 0)
         go_f = hit_f & (count_f == 0)
         both = go_n & go_f
@@ -177,7 +188,7 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
 def closest_hit_plain(scene, o, d, t0, mask=None) -> dict:
     """The kernel's closest-hit walk in plain PyTorch, lockstep over the
     rays, so t/u/v, ids and counters equal the kernel's."""
-    return _decode(scene.shade, _walk_plain(scene, o, d, t0, mask, any_hit=False))
+    return decode(scene.shade, _walk_plain(scene, o, d, t0, mask, any_hit=False))
 
 
 def occluded_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
@@ -186,14 +197,57 @@ def occluded_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
     return _walk_plain(scene, o, d, t0, mask, any_hit=True)["slot"] >= 0
 
 
-def _check(what, o, d, t0, mask, scene):
+_OUT_KEYS = ("t", "u", "v", "slot", "tri_idx", "obj_id", "mat_id", "traversed", "tested")
+
+
+def launch_closest(what: str, entry: str, o, d, t0, mask, tables: list) -> dict:
+    """Launch the closest-hit kernel `entry` (a `crt_*` function of the
+    library) on rays (o, d, t0, mask) with its scene arguments `tables`
+    (pointers and ints, checked by the caller); returns the outputs of the
+    module docstring."""
+    r, dev = o.shape[0], o.device
+    mask = _rays(what, o, d, t0, mask)
+    k = kernel_lib.load()
+    out = {key: torch.empty(r, dtype=torch.float32 if key in ("t", "u", "v") else torch.int32,
+                            device=dev) for key in _OUT_KEYS}
+    code = getattr(k.lib, entry)(
+        o.data_ptr(), d.data_ptr(), t0.data_ptr(), mask.data_ptr(), r, *tables,
+        *(out[key].data_ptr() for key in _OUT_KEYS), kernel_lib.stream(dev),
+    )
+    kernel_lib.check(k.lib, code, what)
+    return out
+
+
+def launch_occluded(what: str, entry: str, o, d, t0, mask, tables: list) -> torch.Tensor:
+    """Launch the any-hit kernel `entry` likewise; returns bool [R]."""
+    mask = _rays(what, o, d, t0, mask)
+    k = kernel_lib.load()
+    out = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    code = getattr(k.lib, entry)(
+        o.data_ptr(), d.data_ptr(), t0.data_ptr(), mask.data_ptr(), o.shape[0], *tables,
+        out.data_ptr(), kernel_lib.stream(o.device),
+    )
+    kernel_lib.check(k.lib, code, what)
+    return out
+
+
+def _rays(what, o, d, t0, mask) -> torch.Tensor:
+    """Check the rays' tensors; returns the mask (all True for None)."""
     r = o.shape[0]
+    if mask is None:
+        mask = torch.ones(r, dtype=torch.bool, device=o.device)
     kernel_lib.require(
         what, o.device,
         o=(o, torch.float32, (r, 3)), d=(d, torch.float32, (r, 3)),
         t0=(t0, torch.float32, (r,)), mask=(mask, torch.bool, (r,)),
-        nodes=(scene.nodes, torch.int32, None), tris=(scene.tris, torch.float32, None),
-        shade=(scene.shade, torch.float32, None),
+    )
+    return mask
+
+
+def _tables(what, scene, device) -> None:
+    kernel_lib.require(
+        what, device, nodes=(scene.nodes, torch.int32, None),
+        tris=(scene.tris, torch.float32, None), shade=(scene.shade, torch.float32, None),
     )
 
 
@@ -202,28 +256,9 @@ def closest_hit(scene, o, d, t0, mask=None) -> dict:
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if kernel_lib.on_cpu("closest_hit", o):
         return closest_hit_plain(scene, o, d, t0, mask)
-    r = o.shape[0]
-    if mask is None:
-        mask = torch.ones(r, dtype=torch.bool, device=o.device)
-    _check("closest_hit", o, d, t0, mask, scene)
-    k = kernel_lib.load()
-    f32 = dict(dtype=torch.float32, device=o.device)
-    i32 = dict(dtype=torch.int32, device=o.device)
-    out = dict(
-        t=torch.empty(r, **f32), u=torch.empty(r, **f32), v=torch.empty(r, **f32),
-        slot=torch.empty(r, **i32), tri_idx=torch.empty(r, **i32),
-        obj_id=torch.empty(r, **i32), mat_id=torch.empty(r, **i32),
-        traversed=torch.empty(r, **i32), tested=torch.empty(r, **i32),
-    )
-    code = k.lib.crt_closest_hit(
-        o.data_ptr(), d.data_ptr(), t0.data_ptr(), mask.data_ptr(), r,
-        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.shade.data_ptr(), scene.root,
-        *(out[key].data_ptr() for key in (
-            "t", "u", "v", "slot", "tri_idx", "obj_id", "mat_id", "traversed", "tested",
-        )),
-        kernel_lib.stream(o.device),
-    )
-    kernel_lib.check(k.lib, code, "closest_hit")
+    _tables("closest_hit", scene, o.device)
+    out = launch_closest("closest_hit", "crt_closest_hit", o, d, t0, mask, [
+        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.shade.data_ptr(), scene.root])
     closest_hit.launches += 1
     return out
 
@@ -234,18 +269,9 @@ def occluded(scene, o, d, t0, mask=None) -> torch.Tensor:
     kernel for CUDA tensors."""
     if kernel_lib.on_cpu("occluded", o):
         return occluded_plain(scene, o, d, t0, mask)
-    r = o.shape[0]
-    if mask is None:
-        mask = torch.ones(r, dtype=torch.bool, device=o.device)
-    _check("occluded", o, d, t0, mask, scene)
-    k = kernel_lib.load()
-    out = torch.empty(r, dtype=torch.bool, device=o.device)
-    code = k.lib.crt_occluded(
-        o.data_ptr(), d.data_ptr(), t0.data_ptr(), mask.data_ptr(), r,
-        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.root, out.data_ptr(),
-        kernel_lib.stream(o.device),
-    )
-    kernel_lib.check(k.lib, code, "occluded")
+    _tables("occluded", scene, o.device)
+    out = launch_occluded("occluded", "crt_occluded", o, d, t0, mask, [
+        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.root])
     occluded.launches += 1
     return out
 

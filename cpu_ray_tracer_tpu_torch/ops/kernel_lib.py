@@ -49,6 +49,28 @@ _SIGNATURES = {
         _ptr, _ptr, _int,  # nodes, tris, root
         _ptr, _ptr,  # occluded, stream
     ],
+    "crt_closest_hit_links": [
+        _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
+        _ptr, _ptr, _ptr, _ptr, _int,  # nodes, links, tris, shade, root
+        *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
+        _ptr,  # stream
+    ],
+    "crt_occluded_links": [
+        _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
+        _ptr, _ptr, _ptr, _int,  # nodes, links, tris, root
+        _ptr, _ptr,  # occluded, stream
+    ],
+    "crt_closest_hit_wide": [
+        _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
+        _ptr, _ptr, _int, _ptr, _ptr,  # wide nodes, wide roots, n_roots, tris, shade
+        *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
+        _ptr,  # stream
+    ],
+    "crt_occluded_wide": [
+        _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
+        _ptr, _ptr, _int, _ptr,  # wide nodes, wide roots, n_roots, tris
+        _ptr, _ptr,  # occluded, stream
+    ],
     "crt_wavefront_pt": [
         _ptr, _ptr, _ptr, _ptr, _ptr, _int,  # o, d, seed, alive, inside, n
         _ptr, _ptr, _ptr, _int, _ptr, _int,  # nodes, tris, shade, root, params, n_mats

@@ -16,12 +16,19 @@ XLA's static shapes.
 
 A level runs through one of two routes, which give the same image up to
 float32 rounding:
-* `level_kernel=True` (the default, as the JAX package on its chip): one
-  launch of the Whitted level kernel (`ops/whitted_wf.py`) does the
-  nearest hit, hit info and the shadow ray; the host gathers texels and
-  the sky;
+* `level_kernel=True` (the default on a binary BVH, as the JAX package on
+  its chip): one launch of the Whitted level kernel (`ops/whitted_wf.py`)
+  does the nearest hit, hit info and the shadow ray; the host gathers
+  texels and the sky;
 * `level_kernel=False`: the host queries of `scene/query` and
-  `render/common` (the closest-hit and any-hit kernels).
+  `render/common` (the closest-hit and any-hit kernels of the scene's
+  walk).
+
+The level kernel walks the binary stack tables, so it serves only scenes
+that have them (`DeviceScene.stack_kernels`, the JAX package's
+`_use_kernel_level0`, render/whitted.py:125-138): `level_kernel=None`
+takes it there and the host route elsewhere (grid, KD tree, a wide-only
+BVH); an explicit `level_kernel=True` on such a scene raises.
 
 The film adds later levels with `index_add_` at the children's pixels; on
 the card that sum is atomic and its order varies from run to run.
@@ -39,6 +46,18 @@ from cpu_ray_tracer_tpu_torch.render import common
 from cpu_ray_tracer_tpu_torch.scene import query
 
 EPS = constants.SHADE_EPS
+
+
+def level_kernel_for(scene, level_kernel) -> bool:
+    """`level_kernel`, or for None the default of the scene (module
+    docstring)."""
+    if level_kernel is None:
+        return scene.stack_kernels
+    if level_kernel and not scene.stack_kernels:
+        raise ValueError(
+            "level_kernel=True: the Whitted level kernel walks the binary stack tables, which "
+            f"a scene walked by {scene.walk!r} does not serve")
+    return bool(level_kernel)
 
 
 def _level_host(scene, o, d, inside) -> dict:
@@ -115,12 +134,13 @@ def _shade(scene, lv: dict, d, inside, weight):
     return contrib, children
 
 
-def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT, level_kernel: bool = True):
+def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT,
+             level_kernel: bool | None = None):
     """Whitted radiance [R, 3] along rays (o, d) [R, 3] (outside every
     medium), in the input order, and stats: the first level's per-ray
     `traversed` and `tested`, `rays` (rays traced over all levels, an int)
     and `levels` (levels traced)."""
-    level = _level_kernel if level_kernel else _level_host
+    level = _level_kernel if level_kernel_for(scene, level_kernel) else _level_host
     n, dev = o.shape[0], o.device
     pixel = torch.arange(n, device=dev)
     inside = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -151,7 +171,7 @@ def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT, level_kernel
 
 
 def render(scene, camera: cam_mod.Camera, depth_limit: int = constants.DEPTH_LIMIT,
-           level_kernel: bool = True) -> dict:
+           level_kernel: bool | None = None) -> dict:
     """One Whitted frame (unjittered primary rays).  Returns dict(image
     [H, W, 3], traversed and tested [H, W] of the primary rays, dropped
     (always 0: no child is ever dropped), rays, levels)."""
@@ -168,7 +188,7 @@ def render(scene, camera: cam_mod.Camera, depth_limit: int = constants.DEPTH_LIM
 def render_adaptive(scene, camera: cam_mod.Camera, depth_limit: int = constants.DEPTH_LIMIT,
                     cap_factor: float = 0.25, max_cap_factor: float = 8.0,
                     differentiable: bool = False, on_grow=None,
-                    level_kernel: bool = True) -> dict:
+                    level_kernel: bool | None = None) -> dict:
     """The JAX package's grow-or-fail entry point.  Nothing is ever dropped
     here, so it renders once, never calls `on_grow`, and reports
     `cap_factor` as given."""

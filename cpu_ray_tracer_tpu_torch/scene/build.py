@@ -1,13 +1,22 @@
 """Host-side scene compiler: XML spec -> DeviceScene.
 
-The port of the JAX package's `cpu_ray_tracer_tpu/scene/build.py` for the
-configuration the path tracer's main path uses: `layout="tlas"`,
-`accel="bvh"`, `instancing="baked"` — the reference's TLASFileScene
+The port of the JAX package's `cpu_ray_tracer_tpu/scene/build.py` for
+`layout="tlas"`, `instancing="baked"`: the reference's TLASFileScene
 (infra/scene/tlas_file_scene.cpp) with every instance baked into world
-space and all BLAS nodes fused under the TLAS into one node forest
-(`_build_unified_tlas`, scene/build.py:601-702 there).  Node numbering,
-builds and the leaf triangle order are the JAX package's, so the two
-packages' tables compare one to one.
+space.  The three accelerators are interchangeable and give the same hits:
+
+* `accel="bvh"`: all BLAS nodes fused under the TLAS into one node forest
+  (`_build_unified_tlas`, scene/build.py:601-702 there), walked by the
+  binary stack walk; `wide=True` collapses it into 8-wide nodes for the
+  wide walk, and `wide="bounce"` keeps the binary walk for the wavefront
+  and Whitted kernels and sends only the host queries wide (the JAX
+  package's `CRT_WIDE=1` / `bounce`, scene/build.py:379-440);
+* `accel="grid"` / `"kdtree"`: a grid or KD tree per instance over its
+  world-baked triangles, compiled to cell trees and merged into one forest
+  walked by hit/miss links (scene/build.py:281-333 there).
+
+Node numbering, builds and the leaf triangle order are the JAX package's,
+so the two packages' tables compare one to one.
 """
 
 from __future__ import annotations
@@ -15,7 +24,10 @@ from __future__ import annotations
 import numpy as np
 
 from cpu_ray_tracer_tpu_torch import constants
-from cpu_ray_tracer_tpu_torch.accel import bvh_builder, pack, tlas_builder
+from cpu_ray_tracer_tpu_torch.accel import (
+    bvh_builder, cell_tree, grid_builder, kdtree_builder, pack, tlas_builder, wide as wide_mod,
+)
+from cpu_ray_tracer_tpu_torch.core import device as device_mod
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
 from cpu_ray_tracer_tpu_torch.core.materials import make_table
 from cpu_ray_tracer_tpu_torch.core.textures import build_atlas
@@ -40,16 +52,23 @@ def _object_matrix(obj) -> np.ndarray:
 
 def compile_scene(
     xml_path: str, layout: str = "tlas", accel: str = "bvh", instancing: str = "baked",
-    shadow_quirk: bool = True,
+    shadow_quirk: bool = True, wide: bool | str = False, device=device_mod.DEFAULT,
 ) -> tuple[DeviceScene, SceneInfo]:
-    """Compile an XML scene to a DeviceScene on the CPU; `.to(device)`
-    moves it.  `shadow_quirk` as the JAX package's (`DeviceScene` doc)."""
+    """Compile an XML scene to a DeviceScene on `device` (the card unless
+    the caller asks for another; without a CUDA device the default
+    raises).  `accel` "bvh", "grid" or "kdtree"; `wide` False, True or
+    "bounce" for "bvh" (module docstring); `shadow_quirk` as the JAX
+    package's (`DeviceScene` doc)."""
+    dev = device_mod.resolve(device)
     if layout != "tlas":
         raise NotImplementedError("layout='mono' is not ported yet (ROADMAP queue 1, item 10)")
-    if accel != "bvh":
-        raise NotImplementedError(f"accel={accel!r} is not ported yet (ROADMAP queue 1, item 12)")
     if instancing != "baked":
         raise NotImplementedError("instancing='shared' is not ported yet (ROADMAP queue 1, item 13)")
+    if accel not in ("bvh", "grid", "kdtree"):
+        raise ValueError(f"accel={accel!r}: expected 'bvh', 'grid' or 'kdtree'")
+    if wide not in (False, True, "bounce") or (wide and accel != "bvh"):
+        raise ValueError(f"wide={wide!r} with accel={accel!r}: wide is False, True or "
+                         "'bounce', and only for accel='bvh'")
     spec = load_scene_xml(xml_path)
     xml_dir = spec.xml_dir
 
@@ -114,11 +133,19 @@ def compile_scene(
     shade16[:, 0:9] = all_n.reshape(-1, 9)
     shade16[:, 9:15] = all_uv.reshape(-1, 6)
 
-    host = _build_unified_tlas(inst_v)
-    packed = pack.pack_bvh(
-        **host, tri_v=all_v, shade16=shade16,
-        obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat),
-    )
+    ids = dict(obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat))
+    wide_pack = None
+    if accel == "bvh":
+        host = _build_unified_tlas(inst_v)
+        packed = pack.pack_bvh(**host, tri_v=all_v, shade16=shade16, **ids)
+        if wide:
+            wide_pack = wide_mod.pack_wide(
+                host["node_min"], host["node_max"], host["left"], host["right"],
+                host["tri_count"], host["root"],
+                packed.nodes[:, pack.N_FIRST], packed.nodes[:, pack.N_COUNT],
+            )
+    else:
+        packed = _build_cell_forest(accel, inst_v, all_v, shade16, ids)
 
     light_t = vm.mat_translate(tuple(spec.light_pos))
     scene = DeviceScene(
@@ -133,6 +160,8 @@ def compile_scene(
         floor_inv_to=100.0 / floor_tex_width,
         skydome_tex=skydome_tex,
         shadow_quirk=shadow_quirk,
+        wide=wide_pack,
+        wide_bounce=wide == "bounce",
     )
     info = SceneInfo(
         name=spec.name,
@@ -141,7 +170,33 @@ def compile_scene(
         num_nodes=int(packed.nodes.shape[0]),
         tree_depth=packed.depth,
     )
-    return scene, info
+    return scene.to(dev), info
+
+
+def _build_cell_forest(accel: str, inst_v, all_v, shade16, ids: dict) -> pack.PackedBVH:
+    """A grid or KD tree per instance over its world-baked triangles, with
+    global triangle ids, compiled to cell trees within the node budget and
+    merged into one forest (the JAX package's scene/build.py:281-333)."""
+    # the JAX package's node cap for the merged forest (a TPU SMEM budget
+    # there), kept so that both packages compile the same forest
+    budget = max(8192 // len(inst_v), 512)
+    trees, tri_base = [], 0
+    if accel == "kdtree":
+        # one table of triangle bounds for clipping leaf bounds, by global id
+        tri_bounds = np.stack([all_v.min(axis=1), all_v.max(axis=1)], axis=1)
+    for v in inst_v:
+        if accel == "grid":
+            host = grid_builder.build_grid(v)
+            host["cell_tris"] = host["cell_tris"] + tri_base
+            trees.append(cell_tree.tree_from_grid(host, max_nodes=budget))
+        else:
+            host = kdtree_builder.build_kdtree(v)
+            host["tri_ids"] = host["tri_ids"] + tri_base
+            host["tri_bounds"] = tri_bounds
+            trees.append(cell_tree.tree_from_kd(host, max_nodes=budget))
+        tri_base += v.shape[0]
+    tree, roots = cell_tree.merge_trees(trees) if len(trees) > 1 else (trees[0], None)
+    return cell_tree.pack_tree(tree, all_v, shade16, roots=roots, **ids)
 
 
 def _build_unified_tlas(inst_v: list[np.ndarray]) -> dict:

@@ -2,9 +2,19 @@
 so that `scene.to(device)` moves the whole scene.
 
 The counterpart of the JAX package's `cpu_ray_tracer_tpu/scene/types.py`
-for the TLAS-baked BVH layout.  Fields:
+for the TLAS-baked layout, over any of its accelerators.  Fields:
 
 * `nodes`, `tris`, `shade`: the closest-hit tables (`accel/pack.py`);
+* `links` (cell forests) and `wide_nodes`, `wide_roots` (a wide BVH): the
+  tables of the link walk and the wide walk, None where absent; `roots`,
+  the forest's roots in walk order;
+* `walk`: which kernel answers the scene's closest-hit and any-hit
+  queries: "stack" (the binary walk, `ops/closest_hit.py`), "links" (the
+  grid and KD cell forests, `ops/link_walk.py`) or "wide" (`ops/wide_bvh.py`);
+* `stack_kernels`: whether the wavefront and Whitted level kernels, which
+  walk the binary stack tables, may serve the scene: a binary BVH, alone
+  or with wide tables for the host queries only (`wide_bounce`, the JAX
+  package's `CRT_WIDE=bounce`);
 * `pool` float32 [N, 9]: v0, e1, e2 of every triangle by pool id (the
   triangle pool; hit ids index it);
 * `mat_*`: the material table, plus each material's texture offset, width
@@ -28,6 +38,7 @@ import torch
 from torch import nn
 
 from cpu_ray_tracer_tpu_torch.accel.pack import N_COUNT, PackedBVH
+from cpu_ray_tracer_tpu_torch.accel.wide import PackedWide
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
 from cpu_ray_tracer_tpu_torch.ops import surface
@@ -58,19 +69,31 @@ class DeviceScene(nn.Module):
         floor_inv_to: float,
         skydome_tex: int,
         shadow_quirk: bool = True,
+        wide: PackedWide | None = None,
+        wide_bounce: bool = False,
     ):
         super().__init__()
 
         def buf(name, x, dtype):
-            self.register_buffer(name, torch.from_numpy(np.array(x, dtype)))
+            self.register_buffer(
+                name, None if x is None else torch.from_numpy(np.array(x, dtype)))
 
         buf("nodes", packed.nodes, np.int32)
         buf("tris", packed.tris, np.float32)
         buf("shade", packed.shade, np.float32)
         buf("pool", pool, np.float32)
         self.root = packed.root
+        self.roots = packed.roots
         self.depth = packed.depth
         self.root_is_leaf = bool(packed.nodes[packed.root, N_COUNT] > 0)
+        buf("links", packed.links, np.int32)
+        buf("wide_nodes", None if wide is None else wide.nodes, np.int32)
+        buf("wide_roots", None if wide is None else wide.roots, np.int32)
+        if packed.links is not None:
+            self.walk = "links"
+        else:
+            self.walk = "stack" if wide is None else "wide"
+        self.stack_kernels = packed.links is None and (wide is None or wide_bounce)
 
         buf("mat_albedo", materials.albedo, np.float32)
         buf("mat_reflectivity", materials.reflectivity, np.float32)

@@ -26,7 +26,9 @@ from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from torch_parity import (
     BENCH_CAMERA, BENCH_XML, CUBE_XML, OUR_ASSETS, jax_compile, jax_scene_arrays,
 )
-from torch_rays import axis_aligned_rays, flat_quads_xml, in_plane_rays, node_bounds, random_rays
+from torch_rays import (
+    axis_aligned_rays, flat_quads_xml, in_plane_rays, mt64, node_bounds, random_rays,
+)
 
 XMLS = {"cube_scene": CUBE_XML, "bunny_teapot": BENCH_XML}
 
@@ -45,31 +47,13 @@ def scenes(request, flat_xml):
 def _rays(kind, port):
     if kind == "primary":
         cam = cam_mod.make_camera(64, 40, **BENCH_CAMERA)
-        o, d, _ = pathtracer.camera_rays(cam, 2)
+        o, d, _ = pathtracer.camera_rays(cam, 2, "cpu")
         t0, _ = intersect.primitive_hits(port, o, d)
         return o.numpy(), d.numpy(), t0.numpy(), np.ones(o.shape[0], bool)
     bmin, bmax = node_bounds(port.nodes.numpy())
     if kind == "random":
         return random_rays(bmin, bmax, 2048, seed=1)
     return axis_aligned_rays(bmin, bmax, 1024, seed=2)
-
-
-def _mt64(pool, tri, o, d):
-    """Moller-Trumbore in float64 of rays against pool triangles: (t, u, v)
-    and a first-order bound of the float32 rounding error of u and v: a few
-    roundings of each operand, amplified by 1/det (large for slivers and
-    near-tangent rays)."""
-    v0, e1, e2 = (pool[tri, 3 * k : 3 * k + 3].astype(np.float64) for k in range(3))
-    o, d = o.astype(np.float64), d.astype(np.float64)
-    h = np.cross(d, e2)
-    f = 1.0 / np.einsum("ij,ij->i", e1, h)
-    s = o - v0
-    q = np.cross(s, e1)
-    u, v = f * np.einsum("ij,ij->i", s, h), f * np.einsum("ij,ij->i", d, q)
-    n = lambda x: np.linalg.norm(x, axis=-1)  # noqa: E731
-    scale = (n(o) + n(v0)) * n(d) * (n(e1) + n(e2)) * (1.0 + np.abs(u) + np.abs(v))
-    err = 8 * 2.0**-24 * np.abs(f) * scale
-    return f * np.einsum("ij,ij->i", e2, q), u, v, err
 
 
 def _nan_on_path(port, tri, o, d) -> bool:
@@ -139,7 +123,7 @@ def test_plain_matches_jax_packet_kernel(scenes, kind):
         assert (got["tri_idx"][tie] >= 0).all() and (want["tri_idx"][tie] >= 0).all()
         pool = port.pool.numpy()
         for ids in (got["tri_idx"][tie], want["tri_idx"][tie]):
-            t, u, v, _ = _mt64(pool, ids, o[tie], d[tie])
+            t, u, v, _ = mt64(pool, ids, o[tie], d[tie])
             np.testing.assert_allclose(t, got["t"][tie], rtol=1e-5)
             assert ((u > -1e-5) & (v > -1e-5) & (u + v < 1 + 1e-5)).all()
     same = ~differ
@@ -153,7 +137,7 @@ def test_plain_matches_jax_packet_kernel(scenes, kind):
     # separate fusions with different multiply-add contraction (it can even
     # leave u != 0 on a miss); there the port must agree with a float64
     # evaluation of the same hit instead.
-    _, u64, v64, err = _mt64(port.pool.numpy(), got["tri_idx"][hit], o[hit], d[hit])
+    _, u64, v64, err = mt64(port.pool.numpy(), got["tri_idx"][hit], o[hit], d[hit])
     for key, j, ref in (("u", 0, u64), ("v", 1, v64)):
         near_jax = np.isclose(got[key][hit], want["bary"][hit, j], atol=2e-5, rtol=1e-4)
         near_f64 = np.abs(got[key][hit] - ref) <= 2e-5 + 1e-4 * np.abs(ref) + err
@@ -173,7 +157,7 @@ def test_rays_in_a_flat_leafs_plane_enter_no_leaf(flat_xml):
     """The NaN rule, where it decides: a ray with d.y == 0 in the plane of a
     leaf box of zero height meets NaN on both y slabs and must not enter the
     leaf (a NaN-dropping min/max would let it in and test the quad)."""
-    port, _ = compile_scene(flat_xml)
+    port, _ = compile_scene(flat_xml, device="cpu")
     o, d, t0, mask = (torch.from_numpy(x) for x in in_plane_rays(256, seed=5))
     got = closest_hit_plain(port, o, d, t0, mask)
     assert (got["traversed"] >= 1).all()

@@ -78,6 +78,8 @@ def test_kernel_layer_imports_no_layer_above(path):
 def test_every_kernel_module_is_covered():
     """The wrappers, plain versions and renderers of every ported kernel
     are among the modules imported above."""
-    for name in ("ops.closest_hit", "ops.wavefront_pt", "ops.whitted_wf", "ops.surface",
-                 "ops.kernel_lib", "render.pathtracer", "render.whitted"):
+    for name in ("ops.closest_hit", "ops.link_walk", "ops.wide_bvh", "ops.wavefront_pt",
+                 "ops.whitted_wf", "ops.surface", "ops.kernel_lib", "accel.cell_tree",
+                 "accel.grid_builder", "accel.kdtree_builder", "accel.wide",
+                 "render.pathtracer", "render.whitted"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from cpu_ray_tracer_tpu_torch.ops import kernel_lib, surface, wavefront_pt, whitted_wf
+from cpu_ray_tracer_tpu_torch.ops import (
+    kernel_lib, link_walk, surface, wavefront_pt, whitted_wf, wide_bvh,
+)
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import occluded
 from cpu_ray_tracer_tpu_torch.scene import query
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
@@ -29,8 +31,8 @@ def csrc(tmp_path, monkeypatch):
 
 def test_sources_include_the_shared_headers():
     names = sorted(os.listdir(kernel_lib.CSRC))
-    assert {"ptraverse.cuh", "surface.cuh", "closest_hit.cu", "wavefront_pt.cu",
-            "whitted_wf.cu"} <= set(names)
+    assert {"ptraverse.cuh", "surface.cuh", "closest_hit.cu", "link_walk.cu", "wide_bvh.cu",
+            "wavefront_pt.cu", "whitted_wf.cu"} <= set(names)
     for name in names:
         if name.endswith(".cu"):
             with open(os.path.join(kernel_lib.CSRC, name)) as f:
@@ -78,7 +80,7 @@ def test_kernel_params_follow_the_header_layout():
     against the P_* offsets and the MAT_F record of csrc/surface.cuh."""
     c = _constants("surface.cuh")
     assert c["MAX_MATS"] == surface.MAX_MATS
-    scene, _ = compile_scene(os.path.join(SCENES, "bunny_teapot.xml"))
+    scene, _ = compile_scene(os.path.join(SCENES, "bunny_teapot.xml"), device="cpu")
     p = surface.params(scene)
     assert p is scene.kernel_params
     # bit-cast integer fields are NaN patterns (tex_id -1): compare bits
@@ -103,7 +105,10 @@ def test_kernel_params_follow_the_header_layout():
 
 
 def test_wrappers_reject_other_devices():
-    scene, _ = compile_scene(os.path.join(SCENES, "cube_scene.xml"))
+    xml = os.path.join(SCENES, "cube_scene.xml")
+    scene, _ = compile_scene(xml, device="cpu")
+    grid, _ = compile_scene(xml, accel="grid", device="cpu")
+    wide, _ = compile_scene(xml, wide=True, device="cpu")
     o = torch.zeros((4, 3), device="meta")
     t = torch.zeros(4, device="meta")
     seeds = torch.zeros(4, dtype=torch.int64, device="meta")
@@ -111,6 +116,10 @@ def test_wrappers_reject_other_devices():
         lambda: occluded(scene, o, o, t),
         lambda: wavefront_pt.trace(scene, o, o, seeds, 1, 5),
         lambda: whitted_wf.trace_level0(scene, o, o),
+        lambda: link_walk.closest_hit_links(grid, o, o, t),
+        lambda: link_walk.occluded_links(grid, o, o, t),
+        lambda: wide_bvh.closest_hit_wide(wide, o, o, t),
+        lambda: wide_bvh.occluded_wide(wide, o, o, t),
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
-from cpu_ray_tracer_tpu_torch.ops import intersect, wavefront_pt, whitted_wf
+from cpu_ray_tracer_tpu_torch.ops import intersect, link_walk, wavefront_pt, whitted_wf, wide_bvh
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
     closest_hit, closest_hit_plain, occluded, occluded_plain,
 )
@@ -43,7 +43,7 @@ def scenes(request, cuda, tmp_path_factory):
         xml = flat_quads_xml(str(tmp_path_factory.mktemp("flat")), ASSETS)
     else:
         xml = os.path.join(ASSETS, "scenes", f"{request.param}.xml")
-    cpu, _ = compile_scene(xml)
+    cpu, _ = compile_scene(xml, device="cpu")
     return cpu, copy.deepcopy(cpu).to(cuda)
 
 
@@ -99,7 +99,7 @@ def test_render_on_card_matches_cpu(scenes, cuda):
     assert st_gpu["rays_traced"] == st_cpu["rays_traced"]
     cmp = borderline.unexplained_pixels(
         lambda o, d, s: pathtracer.sample_radiance(cpu, o, d, s)[0],
-        pathtracer.camera_rays(cam, 1), img_gpu.cpu(), img_cpu,
+        pathtracer.camera_rays(cam, 1, "cpu"), img_gpu.cpu(), img_cpu,
     )
     assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
 
@@ -179,7 +179,7 @@ def test_wavefront_render_on_card_matches_cpu(scenes, cuda, k):
     assert st_gpu["rays_traced"] == st_cpu["rays_traced"]
     cmp = borderline.unexplained_pixels(
         lambda o, d, s: pathtracer.sample_radiance(cpu, o, d, s, wavefront_depths=k)[0],
-        pathtracer.camera_rays(cam, 1), img_gpu.cpu(), img_cpu,
+        pathtracer.camera_rays(cam, 1, "cpu"), img_gpu.cpu(), img_cpu,
     )
     assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
 
@@ -193,6 +193,67 @@ def test_whitted_render_on_card_matches_cpu(scenes, cuda, level_kernel):
     ref = whitted.render(cpu, cam, level_kernel=level_kernel)["image"]
     cmp = borderline.unexplained_pixels(
         lambda o, d, _: whitted.radiance(cpu, o, d, level_kernel=level_kernel)[0],
-        (*cam_mod.full_frame_rays(cam), None), out["image"].cpu(), ref,
+        (*cam_mod.full_frame_rays(cam, device="cpu"), None), out["image"].cpu(), ref,
+    )
+    assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
+
+
+ACCELS = {"grid": dict(accel="grid"), "kdtree": dict(accel="kdtree"), "wide": dict(wide=True),
+          "bounce": dict(wide="bounce")}
+
+
+@pytest.fixture(scope="module",
+                params=[(a, x) for a in ACCELS for x in ("cube_scene", "bunny_teapot")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def accel_scenes(request, cuda):
+    accel, name = request.param
+    cpu, _ = compile_scene(os.path.join(ASSETS, "scenes", f"{name}.xml"), device="cpu",
+                           **ACCELS[accel])
+    return cpu, copy.deepcopy(cpu).to(cuda)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_link_and_wide_kernels_match_plain(accel_scenes, kind, cuda):
+    """The link walk (grid, KD) and the wide walk: same walk, same order,
+    same arithmetic as the plain versions, closest and any hit."""
+    _, scene = accel_scenes
+    o, d, t0, mask = _rays(kind, scene, cuda)
+    mod = link_walk if scene.walk == "links" else wide_bvh
+    suffix = "links" if scene.walk == "links" else "wide"
+    kernel = getattr(mod, f"closest_hit_{suffix}")
+    plain = getattr(mod, f"closest_hit_{suffix}_plain")
+    before = kernel.launches
+    got = kernel(scene, o, d, t0, mask)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _same(got, plain(scene, o, d, t0, mask))
+    any_kernel = getattr(mod, f"occluded_{suffix}")
+    any_plain = getattr(mod, f"occluded_{suffix}_plain")
+    for tmax in (t0, torch.full_like(t0, 1.5)):
+        occ = any_kernel(scene, o, d, tmax, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, any_plain(scene, o, d, tmax, mask))
+        assert torch.equal(occ, plain(scene, o, d, tmax, mask)["slot"] >= 0)
+
+
+def test_accel_renders_on_card_match_cpu(accel_scenes, cuda):
+    """Path tracer and Whitted at their defaults for the scene (the host
+    route for grid, KD and wide; the kernels for bounce) on the card against
+    the CPU."""
+    cpu, gpu = accel_scenes
+    cam = cam_mod.make_camera(48, 32, **BENCH_CAMERA)
+    img_gpu, st_gpu = pathtracer.render_pass(gpu, cam, 1)
+    img_cpu, st_cpu = pathtracer.render_pass(cpu, cam, 1)
+    assert st_gpu["rays_traced"] == st_cpu["rays_traced"]
+    cmp = borderline.unexplained_pixels(
+        lambda o, d, s: pathtracer.sample_radiance(cpu, o, d, s)[0],
+        pathtracer.camera_rays(cam, 1, "cpu"), img_gpu.cpu(), img_cpu,
+    )
+    assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
+    out = whitted.render(gpu, cam)
+    ref = whitted.render(cpu, cam)["image"]
+    cmp = borderline.unexplained_pixels(
+        lambda o, d, _: whitted.radiance(cpu, o, d)[0],
+        (*cam_mod.full_frame_rays(cam, device="cpu"), None), out["image"].cpu(), ref,
     )
     assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()

@@ -3,7 +3,9 @@ package's `render_pass` on its host-bounce path (`CRT_WAVEFRONT=0`):
 `rays_traced` exact, image at the tolerance of the JAX package's own
 wavefront-vs-host parity test (tests/test_wavefront.py:62).  A pixel beyond
 the tolerance passes only if the nudge probe shows its path to be
-fp-borderline (`render/borderline.py`)."""
+fp-borderline (`render/borderline.py`).  The binary BVH, and the other
+accelerators (grid, KD tree, wide BVH) on their host route against the
+JAX package's render of the same configuration."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,8 @@ from cpu_ray_tracer_tpu_torch.render import borderline, pathtracer
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from cpu_ray_tracer_tpu_torch.scene.convert import scene_from_arrays
 from torch_parity import (
-    BENCH_CAMERA, BENCH_XML, CUBE_XML, jax_compile, jax_reference_env, jax_scene_arrays,
+    BENCH_CAMERA, BENCH_XML, CUBE_XML, jax_compile, jax_compile_wide, jax_reference_env,
+    jax_scene_arrays,
 )
 
 CASES = {
@@ -47,7 +50,7 @@ def _check(name, scene, ref_img, ref_rays):
     assert bool(torch.isfinite(img).all()) and float(img.sum()) > 0
     cmp = borderline.unexplained_pixels(
         lambda o, d, s: pathtracer.sample_radiance(scene, o, d, s)[0],
-        pathtracer.camera_rays(camera, salt), img, torch.tensor(ref_img),
+        pathtracer.camera_rays(camera, salt, "cpu"), img, torch.tensor(ref_img),
     )
     assert cmp["unexplained"].numel() == 0, (
         f"pixels {cmp['unexplained'].tolist()} differ and are not fp-borderline"
@@ -57,7 +60,7 @@ def _check(name, scene, ref_img, ref_rays):
 
 def test_render_from_own_scene_compile(reference):
     name, img, rays, _ = reference
-    scene, _ = compile_scene(CASES[name][0])
+    scene, _ = compile_scene(CASES[name][0], device="cpu")
     stats = _check(name, scene, img, rays)
     assert int(stats["traversed"].sum()) + int(stats["tested"].sum()) > 0
 
@@ -73,8 +76,8 @@ def test_sample_radiance_keeps_inputs_and_order(reference):
     reversed."""
     name, _, _, _ = reference
     xml, w, h, cam, salt = CASES[name]
-    scene, _ = compile_scene(xml)
-    o, d, seeds = pathtracer.camera_rays(cam_mod.make_camera(w, h, **cam), salt)
+    scene, _ = compile_scene(xml, device="cpu")
+    o, d, seeds = pathtracer.camera_rays(cam_mod.make_camera(w, h, **cam), salt, "cpu")
     kept = (o.clone(), d.clone(), seeds.clone())
     fwd, st = pathtracer.sample_radiance(scene, o, d, seeds)
     for a, b in zip((o, d, seeds), kept):
@@ -99,3 +102,31 @@ def test_shallow_depth_limits_match_jax(depth_limit):
     img, stats = pathtracer.render_pass(scene, cam_mod.make_camera(w, h, **cam), salt, depth_limit)
     assert stats["rays_traced"] == int(st["rays_traced"])
     np.testing.assert_allclose(img.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+# the accelerator interchange: (compile_scene arguments, JAX compile)
+ACCELS = {
+    "grid": (dict(accel="grid"), lambda xml: jax_compile(xml, accel="grid")),
+    "kdtree": (dict(accel="kdtree"), lambda xml: jax_compile(xml, accel="kdtree")),
+    "wide": (dict(wide=True), jax_compile_wide),
+}
+
+
+@pytest.mark.parametrize("accel", list(ACCELS))
+def test_other_accelerators_match_jax(accel):
+    """bunny_teapot 64x40, depth 5 through the grid and KD cell forests (the
+    link walk) and the wide BVH, against the JAX package's host-route
+    render of the same accelerator (its link and wide kernels in interpret
+    mode)."""
+    kwargs, jax_make = ACCELS[accel]
+    xml, w, h, cam, salt = CASES["bunny_teapot"]
+    jax_scene, _ = jax_make(xml)
+    with pytest.MonkeyPatch.context() as mp:
+        jax_reference_env(mp)
+        img, stats = jax_pt.render_pass(
+            jax_scene, jax_cam.make_camera(w, h, **cam), jnp.uint32(salt))
+        ref, rays = np.asarray(img), int(stats["rays_traced"])
+    scene, _ = compile_scene(xml, device="cpu", **kwargs)
+    assert not scene.stack_kernels  # the default is the host route
+    stats = _check("bunny_teapot", scene, ref, rays)
+    assert int(stats["traversed"].sum()) > 0

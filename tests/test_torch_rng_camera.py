@@ -77,10 +77,10 @@ def test_full_frame_rays_allclose(w, h, kw):
     seeds, jx = jax_rng.random_float(seeds)
     seeds, jy = jax_rng.random_float(seeds)
     want = jax_cam.full_frame_rays(jc, jitter_x=jx, jitter_y=jy)
-    o, d, tseeds = pathtracer.camera_rays(tc, 5)
+    o, d, tseeds = pathtracer.camera_rays(tc, 5, "cpu")
     np.testing.assert_array_equal(tseeds.numpy(), np.asarray(seeds).astype(np.int64))
     np.testing.assert_allclose(o.numpy(), np.asarray(want.o), rtol=0, atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(want.d), rtol=0, atol=1e-6)
     plain = jax_cam.full_frame_rays(jc)
-    _, d0 = camera.full_frame_rays(tc)
+    _, d0 = camera.full_frame_rays(tc, device="cpu")
     np.testing.assert_allclose(d0.numpy(), np.asarray(plain.d), rtol=0, atol=1e-6)

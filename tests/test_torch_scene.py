@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from cpu_ray_tracer_tpu_torch.accel import pack
+from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
+from cpu_ray_tracer_tpu_torch.render import pathtracer
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from cpu_ray_tracer_tpu_torch.scene.convert import scene_from_arrays
 from torch_parity import BENCH_XML, CUBE_XML, jax_compile, jax_scene_arrays
@@ -20,7 +22,7 @@ XMLS = {"cube_scene": CUBE_XML, "bunny_teapot": BENCH_XML}
 def pair(request):
     xml = XMLS[request.param]
     jax_scene, jax_info = jax_compile(xml)
-    port, info = compile_scene(xml)
+    port, info = compile_scene(xml, device="cpu")
     return jax_scene, jax_info, port, info
 
 
@@ -116,17 +118,37 @@ def test_scene_from_arrays_equals_port_compile(pair):
 
 def test_scene_moves_with_to():
     """Every table is a buffer: `.to(device)` moves the whole scene."""
-    scene, _ = compile_scene(CUBE_XML)
+    scene, _ = compile_scene(CUBE_XML, device="cpu")
     scene.to("meta")
     assert scene.device.type == "meta"
     assert all(b.device.type == "meta" for b in scene.buffers())
     assert len(list(scene.buffers())) == len(scene.state_dict())
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(layout="mono"), dict(accel="grid"), dict(accel="kdtree"), dict(instancing="shared")],
-)
+@pytest.mark.parametrize("kwargs", [dict(layout="mono"), dict(instancing="shared")])
 def test_other_configurations_not_ported_yet(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_scene(CUBE_XML, **kwargs)
+        compile_scene(CUBE_XML, device="cpu", **kwargs)
+
+
+def test_entry_points_default_to_the_card():
+    """compile_scene and the ray helpers make their tensors on the card
+    unless the caller asks for the CPU; without a card the default raises
+    rather than fall back."""
+    cam = cam_mod.make_camera(8, 4)
+    defaults = (
+        lambda: compile_scene(CUBE_XML)[0].nodes,
+        lambda: pathtracer.camera_rays(cam, 1)[0],
+        lambda: cam_mod.full_frame_rays(cam)[1],
+        lambda: cam_mod.pixel_grid(cam)[0],
+    )
+    for make in defaults:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    scene, _ = compile_scene(CUBE_XML, device="cpu")
+    assert scene.device.type == "cpu" and scene.kernel_params.device.type == "cpu"
+    assert pathtracer.camera_rays(cam, 1, "cpu")[0].device.type == "cpu"
+    assert cam_mod.full_frame_rays(cam, device="cpu")[0].device.type == "cpu"

@@ -52,7 +52,7 @@ def scenes(request):
 
 def _rays(name):
     _, w, h, cam = CASES[name]
-    return pathtracer.camera_rays(cam_mod.make_camera(w, h, **cam), 1)
+    return pathtracer.camera_rays(cam_mod.make_camera(w, h, **cam), 1, "cpu")
 
 
 def _masks(n):
@@ -151,7 +151,7 @@ def jax_render(request):
 def _unexplained(scene, camera, k, img, ref):
     return borderline.unexplained_pixels(
         lambda o, d, s: pathtracer.sample_radiance(scene, o, d, s, DEPTH, k)[0],
-        pathtracer.camera_rays(camera, 1), img, ref,
+        pathtracer.camera_rays(camera, 1, "cpu"), img, ref,
     )["unexplained"]
 
 

@@ -10,7 +10,9 @@
 * `whitted.render` through both level routes against the JAX package's
   eager `whitted.render` on its host route (`CRT_WHITTED_WF=0`; its own
   kernel route disagrees with it on the dielectric scene), and against the
-  scalar oracle `tests/oracle.py`.
+  scalar oracle `tests/oracle.py`;
+* the host route over the grid, the KD tree and the wide BVH against the
+  JAX package's host route over the same accelerator.
 
 The JAX package's Whitted level kernel always takes the shadow quirk; the
 port's reads it from the scene, so the level is held to it with the quirk.
@@ -36,10 +38,12 @@ from cpu_ray_tracer_tpu_torch.ops import whitted_wf
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import occluded, occluded_plain
 from cpu_ray_tracer_tpu_torch.render import borderline, common, whitted
 from cpu_ray_tracer_tpu_torch.scene import query
+from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from cpu_ray_tracer_tpu_torch.scene.convert import scene_from_arrays
 from oracle import WhittedOracle
 from torch_parity import (
-    BENCH_CAMERA, BENCH_XML, CUBE_XML, jax_compile, jax_reference_env, jax_scene_arrays,
+    BENCH_CAMERA, BENCH_XML, CUBE_XML, jax_compile, jax_compile_wide, jax_reference_env,
+    jax_scene_arrays,
 )
 from torch_rays import node_bounds, random_rays
 
@@ -65,7 +69,7 @@ def bench(request):
 def _diffuse_hits(port):
     """Points and normals of the diffuse primary hits of the 64x40 bench
     view (numpy)."""
-    o, d = cam_mod.full_frame_rays(cam_mod.make_camera(64, 40, **BENCH_CAMERA))
+    o, d = cam_mod.full_frame_rays(cam_mod.make_camera(64, 40, **BENCH_CAMERA), device="cpu")
     res = query.find_nearest(port, o, d)
     point = o + res["t"][:, None] * d
     normal, _, mat = query.get_hit_info(port, res, point, d)
@@ -137,7 +141,7 @@ def _level_inputs(port):
     """Primary rays of the bench view, and the child level that the port's
     Whitted tracer makes from them (reflected and refracted rays, `inside`
     set on the refracted ones)."""
-    o, d = cam_mod.full_frame_rays(cam_mod.make_camera(64, 40, **BENCH_CAMERA))
+    o, d = cam_mod.full_frame_rays(cam_mod.make_camera(64, 40, **BENCH_CAMERA), device="cpu")
     lv = whitted._level_kernel(port, o, d, torch.zeros(o.shape[0], dtype=torch.bool))
     _, ch = whitted._shade(port, lv, d, torch.zeros(o.shape[0], dtype=torch.bool),
                            torch.ones((o.shape[0], 3)))
@@ -209,7 +213,7 @@ def test_render_matches_jax_host_route(jax_whitted_render, level_kernel):
     assert int(out["traversed"].sum()) > 0 or port.root_is_leaf
     cmp = borderline.unexplained_pixels(
         lambda o, d, _: whitted.radiance(port, o, d, DEPTH, level_kernel)[0],
-        (*cam_mod.full_frame_rays(camera), None), img, torch.from_numpy(ref.copy()),
+        (*cam_mod.full_frame_rays(camera, device="cpu"), None), img, torch.from_numpy(ref.copy()),
     )
     assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
 
@@ -222,7 +226,7 @@ def test_render_matches_scalar_oracle():
     camera = cam_mod.make_camera(w, h, **cam)
     port = scene_from_arrays(*jax_scene_arrays(jax_scene))
     ref = torch.from_numpy(WhittedOracle(jax_scene).render(jax_cam.make_camera(w, h, **cam)))
-    rays = (*cam_mod.full_frame_rays(camera), None)
+    rays = (*cam_mod.full_frame_rays(camera, device="cpu"), None)
     for level_kernel in (True, False):
         img = whitted.render(port, camera, DEPTH, level_kernel=level_kernel)["image"]
         # this axis-aligned view puts floor hits exactly on texel boundaries
@@ -246,3 +250,31 @@ def test_render_adaptive_drops_nothing():
     assert out["levels"] > 1  # the teapot's dielectric makes children
     with pytest.raises(NotImplementedError):
         whitted.render_adaptive(port, cam_mod.make_camera(8, 4), differentiable=True)
+
+
+@pytest.mark.parametrize("accel", ["grid", "kdtree", "wide"])
+def test_other_accelerators_match_jax_host_route(accel):
+    """bunny_teapot 64x40, depth 5, on the host route (the only route these
+    scenes take) over the link walk or the wide walk, against the JAX
+    package's host route over the same accelerator."""
+    xml, w, h, cam = RENDERS["bunny_teapot"]
+    if accel == "wide":
+        jax_scene, _ = jax_compile_wide(xml)
+        port, _ = compile_scene(xml, wide=True, device="cpu")
+    else:
+        jax_scene, _ = jax_compile(xml, accel=accel)
+        port, _ = compile_scene(xml, accel=accel, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        jax_reference_env(mp)
+        mp.setenv("CRT_WHITTED_WF", "0")
+        ref = np.asarray(jax_whitted.render(jax_scene, jax_cam.make_camera(w, h, **cam),
+                                            depth_limit=DEPTH)["image"])
+    camera = cam_mod.make_camera(w, h, **cam)
+    out = whitted.render(port, camera, DEPTH)
+    img = out["image"]
+    assert out["dropped"] == 0 and out["levels"] > 1 and float(img.sum()) > 0
+    cmp = borderline.unexplained_pixels(
+        lambda o, d, _: whitted.radiance(port, o, d, DEPTH)[0],
+        (*cam_mod.full_frame_rays(camera, device="cpu"), None), img, torch.from_numpy(ref.copy()),
+    )
+    assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()

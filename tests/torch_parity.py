@@ -38,6 +38,29 @@ def jax_compile(xml: str, **kwargs):
         return compile_scene(xml, layout="tlas", use_pallas=True, **kwargs)
 
 
+def jax_compile_wide(xml: str, **kwargs):
+    """`jax_compile` with the wide BVH (`CRT_WIDE=1`): the scene carries
+    `packed_wide`, and its closest-hit queries take the wide kernel."""
+    from cpu_ray_tracer_tpu.scene.build import compile_scene
+
+    with pytest.MonkeyPatch.context() as mp:
+        jax_reference_env(mp)
+        mp.setenv("CRT_WIDE", "1")
+        return compile_scene(xml, layout="tlas", use_pallas=True, **kwargs)
+
+
+def jax_compile_xla(xml: str, accel: str):
+    """The JAX package's grid or KD scene on its XLA traversal
+    (`use_pallas=False`): the reference's DDA and KD descent per instance,
+    chained over the forest (ops/traverse_grid.py, ops/traverse_kd.py,
+    ops/forest.py)."""
+    from cpu_ray_tracer_tpu.scene.build import compile_scene
+
+    with pytest.MonkeyPatch.context() as mp:
+        jax_reference_env(mp)
+        return compile_scene(xml, layout="tlas", use_pallas=False, accel=accel)
+
+
 def jax_scene_arrays(scene):
     """(arrays, meta) of a JAX DeviceScene for `scene_from_arrays`."""
     pk, m, at = scene.packed, scene.materials, scene.atlas

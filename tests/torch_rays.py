@@ -1,5 +1,6 @@
-"""Ray sets for the closest-hit tests, made with numpy from a seed (no JAX
-here: the card's tests import this too)."""
+"""Ray sets for the closest-hit tests, made with numpy from a seed, and the
+numpy checks that hold two walks' hits to each other (no JAX here: the
+card's tests import this too)."""
 
 import os
 
@@ -24,6 +25,52 @@ def random_rays(bmin, bmax, n: int, seed: int):
     t0 = np.full(n, 1e34, np.float32)
     mask = rng.uniform(size=n) > 0.2
     return o, d.astype(np.float32), t0, mask
+
+
+def shadow_rays(bmin, bmax, n: int, seed: int):
+    """`random_rays` whose t0 is a random distance in [0.05, 3), so that the
+    bound cuts many hits, as a shadow ray's distance to the light does."""
+    o, d, _, mask = random_rays(bmin, bmax, n, seed)
+    t0 = np.random.default_rng(seed + 1).uniform(0.05, 3.0, size=n).astype(np.float32)
+    return o, d, t0, mask
+
+
+def mt64(pool, tri, o, d):
+    """Moller-Trumbore in float64 of rays against pool triangles: (t, u, v)
+    and a first-order bound of the float32 rounding error of u and v: a few
+    roundings of each operand, amplified by 1/det (large for slivers and
+    near-tangent rays)."""
+    v0, e1, e2 = (pool[tri, 3 * k : 3 * k + 3].astype(np.float64) for k in range(3))
+    o, d = o.astype(np.float64), d.astype(np.float64)
+    h = np.cross(d, e2)
+    f = 1.0 / np.einsum("ij,ij->i", e1, h)
+    s = o - v0
+    q = np.cross(s, e1)
+    u, v = f * np.einsum("ij,ij->i", s, h), f * np.einsum("ij,ij->i", d, q)
+    n = lambda x: np.linalg.norm(x, axis=-1)  # noqa: E731
+    scale = (n(o) + n(v0)) * n(d) * (n(e1) + n(e2)) * (1.0 + np.abs(u) + np.abs(v))
+    err = 8 * 2.0**-24 * np.abs(f) * scale
+    return f * np.einsum("ij,ij->i", e2, q), u, v, err
+
+
+def assert_hits_agree(got: dict, want: dict, pool, o, d, atol=2e-5, rtol=1e-4) -> np.ndarray:
+    """Two closest-hit results (numpy dicts with `t` and `tri_idx`) of the
+    same rays: t within (atol, rtol), and the triangle ids equal except at
+    ties, where t agrees to 1e-6 relative and both triangles are hits of
+    the ray at that t (a shared edge or vertex, or two triangles through
+    one point).  Returns the mask of rays whose ids agree."""
+    np.testing.assert_allclose(got["t"], want["t"], atol=atol, rtol=rtol)
+    differ = got["tri_idx"] != want["tri_idx"]
+    far_apart = np.abs(got["t"] - want["t"]) > 1e-6 * np.abs(want["t"])
+    assert not (differ & far_apart).any(), np.nonzero(differ & far_apart)[0]
+    tie = np.nonzero(differ)[0]
+    if tie.size:
+        for ids in (got["tri_idx"][tie], want["tri_idx"][tie]):
+            assert (ids >= 0).all()
+            t, u, v, _ = mt64(pool, ids, o[tie], d[tie])
+            np.testing.assert_allclose(t, got["t"][tie], rtol=1e-5)
+            assert ((u > -1e-5) & (v > -1e-5) & (u + v < 1 + 1e-5)).all()
+    return ~differ
 
 
 def axis_aligned_rays(bmin, bmax, n: int, seed: int):

@@ -1,9 +1,15 @@
 """Profile the PyTorch port's main paths on one NVIDIA GPU at 1280x720,
 depth 5, `bunny_teapot.xml` with the `bench.py` camera: a path-tracer pass
-(`render_pass`) or a Whitted frame (`whitted.render`).
+(`render_pass`) or a Whitted frame (`whitted.render`), over the binary BVH
+or another accelerator (`--accel grid|kdtree`, `--wide 1|bounce`).
 
     python tools/profile_torch_pass.py [--passes 10] [--wavefront-depths K] [--json PATH]
     python tools/profile_torch_pass.py --integrator whitted [--level-kernel 0]
+    python tools/profile_torch_pass.py --accel grid [--integrator whitted]
+    python tools/profile_torch_pass.py --wide bounce
+
+The route options default to the scene's own (`compile_scene`'s README
+entry): the kernels on the binary BVH, the host route elsewhere.
 
 Prints the card, ms per pass (or frame) and rays/s over the timed passes
 (after warm-up passes), and over a profiled window: the device's busy and
@@ -24,7 +30,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 RANGES = ("wavefront_", "depth_", "level_")
-OUR_KERNELS = ("closest_hit_kernel", "occluded_kernel", "wavefront_kernel", "whitted_kernel")
+OUR_KERNELS = ("closest_hit_kernel", "occluded_kernel", "closest_hit_links_kernel",
+               "occluded_links_kernel", "closest_hit_wide_kernel", "occluded_wide_kernel",
+               "wavefront_kernel", "whitted_kernel")
 
 
 def _device_us(evt) -> float:
@@ -46,8 +54,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--passes", type=int, default=10)
     ap.add_argument("--integrator", choices=("pathtracer", "whitted"), default="pathtracer")
-    ap.add_argument("--wavefront-depths", type=int, default=pathtracer.WAVEFRONT_DEPTHS)
-    ap.add_argument("--level-kernel", type=int, choices=(0, 1), default=1)
+    ap.add_argument("--accel", choices=("bvh", "grid", "kdtree"), default="bvh")
+    ap.add_argument("--wide", choices=("0", "1", "bounce"), default="0")
+    ap.add_argument("--wavefront-depths", type=int, default=None)
+    ap.add_argument("--level-kernel", type=int, choices=(0, 1), default=None)
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -57,20 +67,24 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    scene, _ = compile_scene(os.path.join(REPO, "assets", "scenes", "bunny_teapot.xml"))
-    scene.to("cuda")
+    wide = dict(zip(("0", "1", "bounce"), (False, True, "bounce")))[args.wide]
+    scene, _ = compile_scene(os.path.join(REPO, "assets", "scenes", "bunny_teapot.xml"),
+                             accel=args.accel, wide=wide, device="cuda")
     camera = cam_mod.make_camera(1280, 720, pos=(0.0, 0.3, -1.2), target=(0.0, -0.1, 2.5))
+    level_kernel = None if args.level_kernel is None else bool(args.level_kernel)
     if args.integrator == "pathtracer":
-        config = f"wavefront_depths={args.wavefront_depths}"
+        depths = pathtracer.wavefront_depths_for(scene, args.wavefront_depths)
+        config = f"accel={args.accel} wide={wide} wavefront_depths={depths}"
 
         def run(p):
-            _, stats = pathtracer.render_pass(scene, camera, p, wavefront_depths=args.wavefront_depths)
+            _, stats = pathtracer.render_pass(scene, camera, p, wavefront_depths=depths)
             return stats["rays_traced"]
     else:
-        config = f"level_kernel={bool(args.level_kernel)}"
+        level_kernel = whitted.level_kernel_for(scene, level_kernel)
+        config = f"accel={args.accel} wide={wide} level_kernel={level_kernel}"
 
         def run(p):
-            return whitted.render(scene, camera, level_kernel=bool(args.level_kernel))["rays"]
+            return whitted.render(scene, camera, level_kernel=level_kernel)["rays"]
 
     for p in range(3):  # warm-up: kernel build, allocator, library handles
         run(100 + p)
