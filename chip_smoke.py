@@ -57,9 +57,23 @@ The accelerator interchange, on the same scene and camera:
 6b. 64x40 card against CPU for the four configurations: path tracer
     (`rays_traced` exact) and Whitted, at their defaults.
 
-Each drive of a main path (one pass or one frame) sets every kernel's
-launch count to 0 just before it and reads the counts just after; every
-kernel of the path must have launched.
+The TPU probes, on their own inputs (`cpu_ray_tracer_tpu_torch/benchmarks/`):
+
+7. the leaf-test probe: K6 (Moller-Trumbore per thread) on its 64 tiles of
+   4096 rays against its plain version, bit for bit; K7 (the same tests as
+   a 3xTF32 tensor-core product) for m = 8, 32, 64, 128 on every ray of
+   the 64 tiles, within 1e-5 relative but for rays the float64 evaluation
+   explains (`leaf_tolerance.disagreements`; their count is printed);
+   times of both and, beside K7, of `torch.matmul` on the same product in
+   float32 (product only); then one drive of `mxu_probe.main`;
+8. the node-step probe: K8 for all ten variants on the 921,600 camera rays
+   of `bunny_teapot`'s TLAS tables, equal to its plain version; times; the
+   SASS of each variant holds its block-wide reductions (`cuobjdump`);
+   then one drive of `sync_probe.main` over all ten variants.
+
+Each drive of a main path (one pass or one frame, or one probe run) sets
+every kernel's launch count to 0 just before it and reads the counts just
+after; every kernel of the path must have launched.
 The line before the last is `{"kernels": [...]}`: per kernel its
 launches on the main paths, its time and its plain version's on the
 main path's inputs (phase 3), and its bound: the larger of the bytes it
@@ -67,9 +81,14 @@ must move (its ray inputs, the scene tables it reads and its outputs,
 each once) over 3.35 TB/s and the float32 operations of its walk on these
 inputs (31 per slab test and 58 per Moller-Trumbore test of
 `csrc/ptraverse.cuh`, times the steps and tests the rays took, from the
-kernel's own counters) over 67 TFLOP/s (NVIDIA H100 SXM, at 700 W).  No
-single PyTorch call computes a BVH walk: `library_ms` is null.  The last
-line is `{"ok": true, "device": {...}}`.
+kernel's own counters) over 67 TFLOP/s (NVIDIA H100 SXM, at 700 W); for the
+probes, 58 operations per K6 test, K8's slab tests (32 with the count's
+add), and for K7 the larger of its three TF32 passes over 495 TFLOP/s and
+its 19 epilogue operations per test over 67 TFLOP/s (the tensor cores and
+the float32 units are separate pipes, which different warps keep busy at
+the same time).  No single PyTorch call computes a BVH walk, a leaf
+probe or a walk probe: `library_ms` is null.  The last line is `{"ok":
+true, "device": {...}}`.
 """
 
 import copy
@@ -96,6 +115,18 @@ ACCEL_PASSES, ACCEL_FRAMES = 8, 4
 # dots, one division, the acceptance compares)
 BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 SLAB_OPS, MT_OPS = 31, 58
+# K7: dense TF32 on the tensor cores (a multiply-add counts 2); float32
+# operations per leaf test of its epilogue (csrc/leaf_probe.cu: the
+# reciprocal and its guard, three products, the accept chain, the
+# candidate and its min)
+TF32_OPS_PER_S, MXU_EPILOGUE_OPS = 495e12, 19
+# K8: slab tests per ray of each variant (256 steps, E and F test 8 nodes)
+SYNC_SLABS = dict(A=0, B=256, C=256, D=256, E1=2048, E2=2048, E8=2048, F0=2048, F1=2048,
+                  F2=2048)
+# K8: the block-wide reductions each variant must keep in its SASS
+# (sync_probe_kernel<V>): __syncthreads_or is BAR.RED, a warp sum REDUX
+SYNC_SASS = dict(C={"BAR.RED": 1}, D={"REDUX": 1}, E1={"REDUX": 1}, E2={"REDUX": 2},
+                 E8={"BAR.RED": 8}, F0={"BAR.RED": 8}, F1={"BAR.RED": 8}, F2={"BAR.RED": 8})
 
 
 def card() -> str:
@@ -126,6 +157,27 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
 
 
+def roofline(moved: int, t_ops: float) -> dict:
+    """The bound of a call that moves `moved` bytes and computes for
+    `t_ops` ms at the card's peak rates."""
+    t_bytes = 1e3 * moved / BYTES_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=moved)
+
+
+def timed_once(fn):
+    """(fn's result, ms of that one call on the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(inputs: list, tables: list, got, counters: dict, slabs: int, n: int) -> dict:
     """The least time the card could take for a walk kernel's call: bytes
     (inputs, tables, outputs, each once) over the memory rate against the
@@ -133,12 +185,31 @@ def bound(inputs: list, tables: list, got, counters: dict, slabs: int, n: int) -
     Moller-Trumbore test per triangle test, three reciprocals per ray)
     over the float32 rate."""
     outs = list(got.values()) if isinstance(got, dict) else [got]
-    moved = nbytes(*inputs, *tables, *outs)
     ops = (slabs * SLAB_OPS * int(counters["traversed"].sum())
            + MT_OPS * int(counters["tested"].sum()) + 3 * n)
-    t_bytes, t_ops = 1e3 * moved / BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=moved, ops=ops)
+    return dict(roofline(nbytes(*inputs, *tables, *outs), 1e3 * ops / F32_OPS_PER_S), ops=ops)
+
+
+def sass_counts(path: str) -> dict:
+    """Per instantiation V of `sync_probe_kernel<V>` in the library: counts
+    of the SASS instructions that block-wide reductions compile to."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", path],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, v = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"sync_probe_kernelILi(\d+)EE", line)
+            v = int(found.group(1)) if found else None
+            if v is not None:
+                counts[v] = {}
+        elif v is not None:
+            for op in ("BAR.RED", "REDUX", "BAR.SYNC"):
+                if op in line:
+                    counts[v][op] = counts[v].get(op, 0) + 1
+    return counts
 
 
 def compare(name: str, label: str, kernel, plain, n: int, work=None) -> dict:
@@ -148,13 +219,7 @@ def compare(name: str, label: str, kernel, plain, n: int, work=None) -> dict:
     import torch
 
     got = kernel()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = plain()  # timed once: the plain version repeats the kernel's arithmetic
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    want, plain_ms = timed_once(plain)  # once: the plain version repeats the kernel's arithmetic
     if not isinstance(got, dict):
         got, want = {"out": got}, {"out": want}
     max_err, bitwise = 0.0, 0
@@ -235,10 +300,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port has no CPU fallback here", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from cpu_ray_tracer_tpu_torch.benchmarks import leaf_tolerance, mxu_probe
+    from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
     from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
     from cpu_ray_tracer_tpu_torch.ops import (
-        closest_hit as stack_walk, intersect, kernel_lib, link_walk, wavefront_pt, whitted_wf,
-        wide_bvh,
+        closest_hit as stack_walk, intersect, kernel_lib, leaf_probe, link_walk, sync_probe,
+        wavefront_pt, whitted_wf, wide_bvh,
     )
     from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
         closest_hit, closest_hit_plain, occluded, occluded_plain,
@@ -643,6 +710,103 @@ def main() -> int:
                 or wcmp["unexplained"].numel()):
             raise AssertionError(f"{acc}: the card's render differs from the CPU's")
 
+    # --- 7. the leaf-test probe: K6 and K7 --------------------------------
+    probes = []  # (name, source, replaces, result) of each probe kernel
+    leaf_in = mxu_probe.inputs(mxu_probe.N_TILES, dev)
+    tris, comps = leaf_in["tris"], leaf_in["comps"]
+    n_leaf = comps[0].numel()
+    got = leaf_probe.vpu_leaf(tris, *comps)
+    want, plain_ms = timed_once(lambda: leaf_probe.vpu_leaf_plain(tris, *comps))
+    mismatch = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if mismatch:
+        raise AssertionError(f"vpu_leaf: {mismatch} of {n_leaf} outputs differ from its plain version")
+    ms = time_cuda(lambda: leaf_probe.vpu_leaf(tris, *comps), KERNEL_REPEATS)
+    tests = n_leaf * tris.shape[0] * 8
+    b = roofline(nbytes(tris, *comps, got), 1e3 * MT_OPS * tests / F32_OPS_PER_S)
+    print(f"vpu_leaf (K6): {n_leaf} rays x {tris.shape[0] * 8} triangles, bit-equal, hits "
+          f"{int((got < 1e29).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_ms'] / ms:.4f}")
+    probes.append(("vpu_leaf", "leaf_probe.cu", "benchmarks/mxu_probe.py:174",
+                   dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)))
+    for m in leaf_probe.WIDTHS:
+        c_tab, phi = leaf_in["per_m"][m]
+        packed = leaf_in["packed"][m]
+        got = leaf_probe.mxu_leaf(c_tab, phi, m, packed)
+        want, plain_ms = timed_once(lambda: leaf_probe.mxu_leaf_plain(c_tab, phi, m))
+        beyond, bad = leaf_tolerance.disagreements(
+            got, want, lambda r: leaf_tolerance.mxu_quantities(c_tab, phi, m, r), with_uv=False)
+        inside = torch.ones(got.numel(), dtype=torch.bool, device=dev)
+        inside[beyond.to(dev)] = False
+        err = float((got.reshape(-1) - want.reshape(-1))[inside].abs().max())
+        ms = time_cuda(lambda: leaf_probe.mxu_leaf(c_tab, phi, m, packed), KERNEL_REPEATS)
+        flush = leaf_probe.n_flush(m)
+        tests = got.numel() * flush * m
+        # per test 4 rows of C times 16 features, 2 operations each, 3 passes
+        t_mma = 1e3 * 3 * 2 * 4 * 16 * tests / TF32_OPS_PER_S
+        t_epilogue = 1e3 * MXU_EPILOGUE_OPS * tests / F32_OPS_PER_S
+        b = roofline(nbytes(c_tab, phi, got), max(t_mma, t_epilogue))
+        torch.backends.cuda.matmul.allow_tf32 = False  # the library's product in full float32
+        flat = phi.permute(1, 0, 2).reshape(16, -1).contiguous()
+        cm = c_tab[:4 * m].contiguous()
+        mm_ms = time_cuda(lambda: torch.matmul(cm, flat), KERNEL_REPEATS) * flush
+        print(f"mxu_leaf (K7) m={m}: {got.numel()} rays x {flush} flushes of {m}, beyond 1e-5 "
+              f"relative {beyond.numel()} (explained by the float64 evaluation: "
+              f"{beyond.numel() - bad.numel()}), max abs err of the rest {err:.3g}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} (TF32 passes {t_mma:.4f} ms, epilogue {t_epilogue:.4f} ms), "
+              f"share {b['bound_ms'] / ms:.4f}; torch.matmul float32 on the "
+              f"same {flush} products [{4 * m}, 16] @ [16, {flat.shape[1]}] (product only) "
+              f"{mm_ms:.4f} ms")
+        if bad.numel():
+            raise AssertionError(f"mxu_leaf m={m}: {bad.numel()} rays beyond tolerance and not "
+                                 f"borderline, e.g. {bad[:8].tolist()}")
+        probes.append((f"mxu_leaf m={m}", "leaf_probe.cu", "benchmarks/mxu_probe.py:193",
+                       dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, product_only_ms=mm_ms, **b)))
+    leaf_probe.vpu_leaf.launches = 0
+    leaf_probe.mxu_leaf.launches = dict.fromkeys(leaf_probe.WIDTHS, 0)
+    mxu_probe.main(dev)
+    torch.cuda.synchronize()
+    probe_launches = {"vpu_leaf": leaf_probe.vpu_leaf.launches,
+                      **{f"mxu_leaf m={m}": c for m, c in leaf_probe.mxu_leaf.launches.items()}}
+
+    # --- 8. the node-step probe: K8, every variant ------------------------
+    sync_in = sync_bench.inputs(sync_bench.N_TILES, dev)
+    aabb, links, rays = sync_in["aabb"], sync_in["links"], sync_in["comps"]
+    n_sync = rays[0].numel()
+    for variant in sync_probe.VARIANTS:
+        got = sync_bench.run(sync_in, variant)
+        want, plain_ms = timed_once(
+            lambda v=variant: sync_probe.node_walk_plain(aabb, links, rays, v))
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"node_walk {variant}: {bad} of {n_sync} outputs differ")
+        ms = time_cuda(lambda v=variant: sync_bench.run(sync_in, v), KERNEL_REPEATS)
+        slabs = SYNC_SLABS[variant]
+        b = roofline(nbytes(aabb, links, got, *(rays if slabs else [])),
+                     1e3 * (SLAB_OPS + 1) * slabs * n_sync / F32_OPS_PER_S)
+        ns_step = 1e6 * ms / (sync_bench.N_TILES * sync_probe.STEPS)
+        print(f"node_walk (K8) {variant}: {n_sync} rays, equal, output range "
+              f"[{float(got.min()):g}, {float(got.max()):g}], kernel {ms:.4f} ms "
+              f"({ns_step:.3f} ns/step), plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms "
+              f"by {b['bound_by']}, share {b['bound_ms'] / ms:.4f}")
+        probes.append((f"node_walk {variant}", "sync_probe.cu", "benchmarks/sync_probe.py:281",
+                       dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)))
+    counts = sass_counts(k.path)
+    for i, variant in enumerate(sync_probe.VARIANTS):
+        have = counts.get(i, {})
+        print(f"  SASS sync_probe_kernel<{variant}>: {have}")
+        for op, need in SYNC_SASS.get(variant, {}).items():
+            if have.get(op, 0) < need:
+                raise AssertionError(f"node_walk {variant}: {have.get(op, 0)} {op} in its SASS, "
+                                     f"its block-wide reductions need {need}")
+    sync_probe.node_walk.launches = dict.fromkeys(sync_probe.VARIANTS, 0)
+    sync_bench.main(sync_probe.VARIANTS, dev)
+    torch.cuda.synchronize()
+    probe_launches.update({f"node_walk {v}": c for v, c in sync_probe.node_walk.launches.items()})
+    for key, count in probe_launches.items():
+        if count == 0:
+            raise AssertionError(f"{key} was never launched by its probe")
+
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    wavefront_pt=("wavefront_pt.cu", "ops/pallas/wavefront_pt.py:165"),
@@ -654,19 +818,27 @@ def main() -> int:
     for key, count in launches.items():
         if count == 0:
             raise AssertionError(f"{key} was never launched on a main path")
+    entries = [dict(name=key, source=src, replaces=f"cpu_ray_tracer_tpu/{tpu}",
+                    launches=launches[key], result=res[key])
+               for key, (src, tpu) in sources.items()]
+    entries += [dict(name=key, source=src, replaces=tpu, launches=probe_launches[key], result=r)
+                for key, src, tpu, r in probes]
     print(json.dumps({"kernels": [{
-        "name": key,
+        "name": e["name"],
         "route": "cuda",
-        "source": f"{PKG}/csrc/{src}",
-        "replaces": f"cpu_ray_tracer_tpu/{tpu}",
-        "launches": launches[key],
-        "max_abs_err": res[key]["max_abs_err"],
-        "ms": res[key]["ms"],
-        "plain_ms": res[key]["plain_ms"],
-        "bound_ms": res[key]["bound_ms"],
-        "bound_by": res[key]["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes a BVH walk
-    } for key, (src, tpu) in sources.items()]}))
+        "source": f"{PKG}/csrc/{e['source']}",
+        "replaces": e["replaces"],
+        "launches": e["launches"],
+        "max_abs_err": e["result"]["max_abs_err"],
+        "ms": e["result"]["ms"],
+        "plain_ms": e["result"]["plain_ms"],
+        "bound_ms": e["result"]["bound_ms"],
+        "bound_by": e["result"]["bound_by"],
+        "share": e["result"]["bound_ms"] / e["result"]["ms"],
+        # no single PyTorch call computes a walk or a leaf probe; K7's
+        # torch.matmul time is its product only
+        "library_ms": None,
+    } for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -79,13 +79,12 @@ __device__ __forceinline__ int octant(const Ray& r) {
   return (r.dx < 0.0f ? 1 : 0) + (r.dy < 0.0f ? 2 : 0) + (r.dz < 0.0f ? 4 : 0);
 }
 
-// Slab test of one node against the ray, as packet_bvh.py:572-589.  There
+// Slab test of a box against the ray, as packet_bvh.py:572-589.  There
 // jnp.minimum / jnp.maximum propagate NaN (a ray origin on a slab plane
 // with a zero direction component gives 0 * inf), and a NaN bound makes the
 // test fail; fminf / fmaxf drop NaN, so the NaN case is tested explicitly.
-__device__ __forceinline__ bool slab(const float* rec, const Ray& r, float t) {
-  const float bminx = __ldg(rec + 0), bminy = __ldg(rec + 1), bminz = __ldg(rec + 2);
-  const float bmaxx = __ldg(rec + 3), bmaxy = __ldg(rec + 4), bmaxz = __ldg(rec + 5);
+__device__ __forceinline__ bool slab_box(float bminx, float bminy, float bminz, float bmaxx,
+                                         float bmaxy, float bmaxz, const Ray& r, float t) {
   const float tx1 = (bminx - r.ox) * r.rdx, tx2 = (bmaxx - r.ox) * r.rdx;
   const float ty1 = (bminy - r.oy) * r.rdy, ty2 = (bmaxy - r.oy) * r.rdy;
   const float tz1 = (bminz - r.oz) * r.rdz, tz2 = (bmaxz - r.oz) * r.rdz;
@@ -96,6 +95,42 @@ __device__ __forceinline__ bool slab(const float* rec, const Ray& r, float t) {
   return !nan && tmax >= tmin && tmin < t && tmax > 0.0f;
 }
 
+// The slab test of a node record (its first six words are the box).
+__device__ __forceinline__ bool slab(const float* rec, const Ray& r, float t) {
+  return slab_box(__ldg(rec + 0), __ldg(rec + 1), __ldg(rec + 2), __ldg(rec + 3),
+                  __ldg(rec + 4), __ldg(rec + 5), r, t);
+}
+
+// A triangle as the leaf tests read it: v0, e1 = v1 - v0, e2 = v2 - v0.
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ tri) {
+  return Tri{__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2), __ldg(tri + 3), __ldg(tri + 4),
+             __ldg(tri + 5), __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8)};
+}
+
+// One Moller-Trumbore test, exactly as packet_bvh.py:521-549: whether the
+// triangle is hit in (TRI_EPS, t), with the hit's u, v and t.
+__device__ __forceinline__ bool moller_trumbore(const Tri& p, const Ray& r, float t, float& uu,
+                                                float& vv, float& tt) {
+  const float hx = r.dy * p.e2z - r.dz * p.e2y;
+  const float hy = r.dz * p.e2x - r.dx * p.e2z;
+  const float hz = r.dx * p.e2y - r.dy * p.e2x;
+  const float a = p.e1x * hx + p.e1y * hy + p.e1z * hz;
+  const float f = 1.0f / (fabsf(a) < 1e-30f ? 1e-30f : a);
+  const float sx = r.ox - p.v0x, sy = r.oy - p.v0y, sz = r.oz - p.v0z;
+  uu = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * p.e1z - sz * p.e1y;
+  const float qy = sz * p.e1x - sx * p.e1z;
+  const float qz = sx * p.e1y - sy * p.e1x;
+  vv = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  tt = f * (p.e2x * qx + p.e2y * qy + p.e2z * qz);
+  return fabsf(a) >= TRI_EPS && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+         tt > TRI_EPS && tt < t;
+}
+
 // Moller-Trumbore over the leaf's slots [first, first + count), in slot
 // order, exactly as packet_bvh.py:521-549: the strict `tt < t` keeps the
 // first-tested of equal hits.  With ANY_HIT it returns true at the first
@@ -104,24 +139,8 @@ template <bool ANY_HIT>
 __device__ __forceinline__ bool leaf_tests(const float* __restrict__ tris, int first, int count,
                                            const Ray& r, Hit& h) {
   for (int k = 0; k < count; ++k) {
-    const float* tri = tris + (size_t)(first + k) * 9;
-    const float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1), v0z = __ldg(tri + 2);
-    const float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-    const float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
-    const float hx = r.dy * e2z - r.dz * e2y;
-    const float hy = r.dz * e2x - r.dx * e2z;
-    const float hz = r.dx * e2y - r.dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    const float f = 1.0f / (fabsf(a) < 1e-30f ? 1e-30f : a);
-    const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-    const float uu = f * (sx * hx + sy * hy + sz * hz);
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float vv = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-    const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
-    if (fabsf(a) >= TRI_EPS && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-        tt > TRI_EPS && tt < h.t) {
+    float uu, vv, tt;
+    if (moller_trumbore(load_tri(tris + (size_t)(first + k) * 9), r, h.t, uu, vv, tt)) {
       h.t = tt;
       h.u = uu;
       h.v = vv;

@@ -86,6 +86,20 @@ _SIGNATURES = {
         *[_ptr] * 10,  # t, flags, mat, tex, irr, r_dir, t_dir, fr, traversed, tested
         _ptr,  # stream
     ],
+    "crt_vpu_leaf": [
+        _ptr, _int,  # tris, n_tris
+        *[_ptr] * 6, _int,  # ox, oy, oz, dx, dy, dz, n
+        _ptr, _ptr,  # out, stream
+    ],
+    "crt_mxu_leaf": [
+        _ptr, _ptr, _int, _int, _int,  # packed C, phi, n_tiles, m, n_flush
+        _ptr, _ptr,  # out, stream
+    ],
+    "crt_sync_probe": [
+        _ptr, _ptr, _int,  # aabb, links, m
+        *[_ptr] * 6, _int, _int,  # ox, oy, oz, dx, dy, dz, n_tiles, variant
+        _ptr, _ptr,  # out, stream
+    ],
 }
 
 

@@ -1,0 +1,166 @@
+"""The leaf-test probes: Moller-Trumbore closest hit of 4096-ray tiles
+against 512 triangles, per thread on the CUDA cores (`vpu_leaf`, K6) and
+as a matrix product on the tensor cores (`mxu_leaf`, K7), with their plain
+PyTorch versions (`vpu_leaf_plain`, `mxu_leaf_plain`).
+
+The ports of `make_vpu_kernel` and `make_mxu_kernel(m)` of the JAX
+package's probe `benchmarks/mxu_probe.py:65`, `:110` (launched at `:174`,
+`:193`); the kernels are `csrc/leaf_probe.cu`.
+
+    vpu_leaf(tris, ox, oy, oz, dx, dy, dz) -> out float32 [T, 32, 128]
+        tris float32 [R, 128]: R rows of 8 records of 16 floats (v0, e1, e2
+        in floats 0-8), tested in row order, slot = 8 * row + record; the
+        ray components float32 [T, 32, 128]; out = t + u + v + slot of the
+        closest hit (1e30 where nothing is hit).
+    mxu_leaf(c_tab, phi, m, packed=None) -> out float32 [T, 4096]
+        c_tab float32 [16m, 16]: 4 groups of 4m rows (a, u*a, v*a, t*a of m
+        triangles, quantity-major); phi float32 [T, 16, 4096]: the rays'
+        features; flush i (of 512 / m) tests group i % 4; out = t + slot of
+        every ray of the tile.  The JAX kernel stores only rays 0-127 of
+        each tile (`[:, None, :128]`); the port's kernel writes all of them.
+        `packed` is `pack_c(c_tab, m)`, the kernel's row order, made once
+        per table by the caller; None packs it in the call.
+
+Each wrapper runs the plain version for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; there is no other fallback.  K6
+equals its plain version bit for bit.  K7's product is three TF32 passes
+and the plain version's is float64 rounded to float32, so the two agree to
+about 1e-6 relative, and a ray's slot can differ only where a decision is
+that close (`benchmarks/leaf_tolerance.py`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cpu_ray_tracer_tpu_torch.ops import kernel_lib
+
+TILE = 4096
+RECORD = 16  # floats per triangle record; v0, e1, e2 in the first 9
+WIDTHS = (8, 32, 64, 128)  # triangles per flush that the kernel is built for
+TESTS = 512  # triangle tests per ray: 64 rows of 8, or 512 / m flushes of m
+_TINY = np.float32(1e-30)
+EPS = np.float32(1e-4)
+FAR = np.float32(1e30)
+
+
+def n_flush(m: int) -> int:
+    """Flushes of m triangles per tile: as many tests as the VPU probe."""
+    return max(TESTS // m, 1)
+
+
+def _accept(a, uu, vv, tt, t):
+    return ((a.abs() >= EPS) & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0)
+            & (uu + vv <= 1.0) & (tt > EPS) & (tt < t))
+
+
+def vpu_leaf_plain(tris, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
+    """K6 in plain PyTorch: the probe's arithmetic, in its order, over all
+    rays at once, triangle by triangle."""
+    rec = tris.reshape(-1, RECORD)
+    t = torch.full_like(ox, float(FAR))
+    u = torch.zeros_like(ox)
+    v = torch.zeros_like(ox)
+    slot = torch.full(ox.shape, -1, dtype=torch.int32, device=ox.device)
+    for k in range(rec.shape[0]):
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rec[k, :9].unbind(0)
+        hx = dy * e2z - dz * e2y
+        hy = dz * e2x - dx * e2z
+        hz = dx * e2y - dy * e2x
+        a = e1x * hx + e1y * hy + e1z * hz
+        f = 1.0 / torch.where(a.abs() < _TINY, _TINY, a)
+        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+        uu = f * (sx * hx + sy * hy + sz * hz)
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        vv = f * (dx * qx + dy * qy + dz * qz)
+        tt = f * (e2x * qx + e2y * qy + e2z * qz)
+        ok = _accept(a, uu, vv, tt, t)
+        t = torch.where(ok, tt, t)
+        u = torch.where(ok, uu, u)
+        v = torch.where(ok, vv, v)
+        slot = torch.where(ok, k, slot)
+    return t + u + v + slot.to(torch.float32)
+
+
+def vpu_leaf(tris, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
+    """K6: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors."""
+    if kernel_lib.on_cpu("vpu_leaf", ox):
+        return vpu_leaf_plain(tris, ox, oy, oz, dx, dy, dz)
+    shape = tuple(ox.shape)
+    if len(shape) != 3 or shape[1:] != (32, 128) or tris.dim() != 2 or tris.shape[1] != 128:
+        raise ValueError(f"vpu_leaf: tris [R, 128] and rays [T, 32, 128], got "
+                         f"{tuple(tris.shape)} and {shape}")
+    n_tris = tris.shape[0] * 8
+    if n_tris * 9 * 4 > 48 * 1024:
+        raise ValueError(f"vpu_leaf: {n_tris} triangles do not fit the kernel's shared memory")
+    comps = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz)
+    kernel_lib.require("vpu_leaf", ox.device, tris=(tris, torch.float32, None),
+                       **{k: (x, torch.float32, shape) for k, x in comps.items()})
+    out = torch.empty(shape, dtype=torch.float32, device=ox.device)
+    k = kernel_lib.load()
+    code = k.lib.crt_vpu_leaf(tris.data_ptr(), n_tris, *(x.data_ptr() for x in comps.values()),
+                              ox.numel(), out.data_ptr(), kernel_lib.stream(ox.device))
+    kernel_lib.check(k.lib, code, "vpu_leaf")
+    vpu_leaf.launches += 1
+    return out
+
+
+def mxu_leaf_plain(c_tab, phi, m: int) -> torch.Tensor:
+    """K7 in plain PyTorch: per flush the product in float64, rounded once
+    to float32, then the probe's float32 epilogue and the first-index min
+    over the m candidates.  Returns t + slot [T, 4096]."""
+    n_tiles, dev = phi.shape[0], phi.device
+    t = torch.full((n_tiles, TILE), float(FAR), dtype=torch.float32, device=dev)
+    slot = torch.full((n_tiles, TILE), -1, dtype=torch.int32, device=dev)
+    idx = torch.arange(m, dtype=torch.int32, device=dev).view(1, m, 1)
+    phi64 = phi.double()
+    for i in range(n_flush(m)):
+        g = i % 4
+        prod = torch.matmul(c_tab[g * 4 * m:(g + 1) * 4 * m].double(), phi64).float()
+        a, ua, va, ta = prod.split(m, dim=1)
+        f = 1.0 / torch.where(a.abs() < _TINY, _TINY, a)
+        uu, vv, tt = ua * f, va * f, ta * f
+        ok = _accept(a, uu, vv, tt, t.unsqueeze(1))
+        cand = torch.where(ok, tt, FAR)
+        tb = cand.amin(dim=1)
+        win = torch.where(cand == tb.unsqueeze(1), idx, m).amin(dim=1)
+        slot = torch.where(tb < t, i * m + win, slot)
+        t = torch.minimum(t, tb)
+    return t + slot.to(torch.float32)
+
+
+def pack_c(c_tab: torch.Tensor, m: int) -> torch.Tensor:
+    """C's rows in the kernel's order: per group of 4m rows, per 8
+    triangles, the 32 rows [a; u*a; v*a; t*a] of those 8 (a 16-row
+    tensor-core fragment holds two quantities of the same 8 triangles)."""
+    return c_tab.reshape(4, 4, m // 8, 8, 16).permute(0, 2, 1, 3, 4).reshape(16 * m, 16)
+
+
+def mxu_leaf(c_tab, phi, m: int, packed=None) -> torch.Tensor:
+    """K7: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors, on `packed` (`pack_c(c_tab, m)`; packed here when None)."""
+    if m not in WIDTHS:
+        raise ValueError(f"mxu_leaf: m={m}, the kernel is built for {WIDTHS}")
+    if kernel_lib.on_cpu("mxu_leaf", phi):
+        return mxu_leaf_plain(c_tab, phi, m)
+    if packed is None:
+        packed = pack_c(c_tab, m).contiguous()
+    n_tiles = phi.shape[0]
+    kernel_lib.require("mxu_leaf", phi.device, packed=(packed, torch.float32, (16 * m, 16)),
+                       phi=(phi, torch.float32, (n_tiles, 16, TILE)))
+    out = torch.empty((n_tiles, TILE), dtype=torch.float32, device=phi.device)
+    k = kernel_lib.load()
+    code = k.lib.crt_mxu_leaf(packed.data_ptr(), phi.data_ptr(), n_tiles, m, n_flush(m),
+                              out.data_ptr(), kernel_lib.stream(phi.device))
+    kernel_lib.check(k.lib, code, "mxu_leaf")
+    mxu_leaf.launches[m] += 1
+    return out
+
+
+vpu_leaf.launches = 0  # kernel launches since the last reset
+mxu_leaf.launches = dict.fromkeys(WIDTHS, 0)  # per m: one kernel each
+

@@ -81,5 +81,6 @@ def test_every_kernel_module_is_covered():
     for name in ("ops.closest_hit", "ops.link_walk", "ops.wide_bvh", "ops.wavefront_pt",
                  "ops.whitted_wf", "ops.surface", "ops.kernel_lib", "accel.cell_tree",
                  "accel.grid_builder", "accel.kdtree_builder", "accel.wide",
-                 "render.pathtracer", "render.whitted"):
+                 "render.pathtracer", "render.whitted", "ops.leaf_probe", "ops.sync_probe",
+                 "benchmarks.mxu_probe", "benchmarks.sync_probe", "benchmarks.leaf_tolerance"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_ray_tracer_tpu_torch.benchmarks import leaf_tolerance, mxu_probe
+from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
-from cpu_ray_tracer_tpu_torch.ops import intersect, link_walk, wavefront_pt, whitted_wf, wide_bvh
+from cpu_ray_tracer_tpu_torch.ops import (
+    intersect, leaf_probe, link_walk, sync_probe, wavefront_pt, whitted_wf, wide_bvh,
+)
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
     closest_hit, closest_hit_plain, occluded, occluded_plain,
 )
@@ -257,3 +261,59 @@ def test_accel_renders_on_card_match_cpu(accel_scenes, cuda):
         (*cam_mod.full_frame_rays(cam, device="cpu"), None), out["image"].cpu(), ref,
     )
     assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
+
+
+@pytest.fixture(scope="module")
+def leaf_inputs(cuda):
+    """The leaf probe's inputs at its full size: 64 tiles of 4096 rays."""
+    return mxu_probe.inputs(mxu_probe.N_TILES, cuda)
+
+
+def test_vpu_leaf_kernel_matches_plain(leaf_inputs):
+    """K6: the probe's arithmetic in its order, -fmad=false: bit-equal."""
+    tris, comps = leaf_inputs["tris"], leaf_inputs["comps"]
+    before = leaf_probe.vpu_leaf.launches
+    got = leaf_probe.vpu_leaf(tris, *comps)
+    torch.cuda.synchronize()
+    assert leaf_probe.vpu_leaf.launches == before + 1
+    want = leaf_probe.vpu_leaf_plain(tris, *comps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert 0.5 < float((got < 1e29).float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("m", leaf_probe.WIDTHS)
+def test_mxu_leaf_kernel_matches_plain(leaf_inputs, m):
+    """K7 on every ray of the 64 tiles: 3xTF32 on the tensor cores against
+    the float64 product; rays beyond 1e-5 relative only where the float64
+    evaluation explains them (`leaf_tolerance.disagreements`)."""
+    c_tab, phi = leaf_inputs["per_m"][m]
+    before = leaf_probe.mxu_leaf.launches[m]
+    got = leaf_probe.mxu_leaf(c_tab, phi, m)
+    torch.cuda.synchronize()
+    assert leaf_probe.mxu_leaf.launches[m] == before + 1
+    want = leaf_probe.mxu_leaf_plain(c_tab, phi, m)
+    assert got.shape == want.shape == (mxu_probe.N_TILES, leaf_probe.TILE)
+    beyond, bad = leaf_tolerance.disagreements(
+        got, want, lambda r: leaf_tolerance.mxu_quantities(c_tab, phi, m, r), with_uv=False)
+    print(f"K7 m={m}: {beyond.numel()} of {got.numel()} rays beyond 1e-5 relative, all "
+          f"explained by the float64 evaluation but {bad.numel()}")
+    assert bad.numel() == 0, bad[:16].tolist()
+    assert beyond.numel() < 1e-3 * got.numel()
+
+
+@pytest.fixture(scope="module")
+def sync_inputs(cuda):
+    """The node-step probe's tables and its 921,600 camera rays."""
+    return sync_bench.inputs(sync_bench.N_TILES, cuda)
+
+
+@pytest.mark.parametrize("variant", sync_probe.VARIANTS)
+def test_node_walk_kernel_matches_plain(sync_inputs, variant):
+    """K8, every variant, on the probe's full inputs: equal."""
+    before = sync_probe.node_walk.launches[variant]
+    got = sync_bench.run(sync_inputs, variant)
+    torch.cuda.synchronize()
+    assert sync_probe.node_walk.launches[variant] == before + 1
+    want = sync_probe.node_walk_plain(sync_inputs["aabb"], sync_inputs["links"],
+                                      sync_inputs["comps"], variant)
+    assert torch.equal(got, want)
