@@ -17,8 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    arguments that a Whitted frame passes them at levels 0 and 1 (recorded
    from a render through each level route: the level kernel's `inside`,
    the host route's shadow query over every ray of a level, masked to the
-   diffuse hits).  Integers exact, floats within 1e-6 relative; times of
-   both;
+   diffuse hits), and the any hit also on the closest hit's rays and t0.
+   Integers exact, floats within 1e-6 relative; times of both;
 4. the path tracer's main path: `compile_scene` -> `render_pass` at
    1280x720, depth 5, for `wavefront_depths` 0, 1 and 6: one warm-up pass
    each, then 16 passes each, the three in turns; ms per pass, rays
@@ -40,9 +40,10 @@ The accelerator interchange, on the same scene and camera:
 
 3b. the link walk (closest and any hit) on the `grid` and `kdtree` cell
     forests and the wide walk on the `wide=True` BVH, each against its
-    plain version on the card: on the primary rays, on the live bounce
-    rays after the first hit, and on the any-hit arguments of a Whitted
-    host-route frame at levels 0 and 1 (recorded); integers exact, floats
+    plain version on the card: closest and any hit on the primary rays and
+    on the live bounce rays after the first hit, and the any hit on the
+    arguments of a Whitted host-route frame at levels 0 and 1 (recorded),
+    which stand in the kernels line; integers exact, floats
     within 1e-6 relative; times of both;
 4b. the path tracer at 1280x720, depth 5, for `grid`, `kdtree` and
     `wide=True` at `wavefront_depths=0` and for `wide="bounce"` at its
@@ -77,11 +78,16 @@ after; every kernel of the path must have launched.
 The line before the last is `{"kernels": [...]}`: per kernel its
 launches on the main paths, its time and its plain version's on the
 main path's inputs (phase 3), and its bound: the larger of the bytes it
-must move (its ray inputs, the scene tables it reads and its outputs,
+must move (its ray inputs, the scene tables of its work and its outputs,
 each once) over 3.35 TB/s and the float32 operations of its walk on these
 inputs (31 per slab test and 58 per Moller-Trumbore test of
 `csrc/ptraverse.cuh`, times the steps and tests the rays took, from the
-kernel's own counters) over 67 TFLOP/s (NVIDIA H100 SXM, at 700 W); for the
+kernel's own counters) over 67 TFLOP/s (NVIDIA H100 SXM, at 700 W).  The
+scene tables counted are the ones that define the work, whatever layout a
+kernel reads: `nodes`, `links`, `tris` and `shade` (or the wide nodes),
+never the walk records built from them (`node_records`, `link_records`,
+`tris4`: padded and, for the links, one copy per octant), so that the
+yardstick does not move with the layout.  For the
 probes, 58 operations per K6 test, K8's slab tests (32 with the count's
 add), and for K7 the larger of its three TF32 passes over 495 TFLOP/s and
 its 19 epilogue operations per test over 67 TFLOP/s (the tensor cores and
@@ -374,6 +380,8 @@ def main() -> int:
         bt0, _ = intersect.primitive_hits(sc, bo, bd)
         return sc, bo, bd, bt0, torch.ones(bo.shape[0], dtype=torch.bool, device=dev)
 
+    # the bound's tables: those that define the work, not the walk records
+    # the kernels read (module docstring)
     stack_tables = ("nodes", "tris", "shade")
     args = (scene, o, d, t0, everyone)
     keep("closest_hit", compare("closest_hit", "primary", lambda: closest_hit(*args),
@@ -418,6 +426,13 @@ def main() -> int:
             else:
                 print(f"  mask {int(args[4].sum())}, occluded {int(r['got']['out'].sum())}")
             keep(key, r)
+    # the any hit on the closest hit's rays and t0 as well (after the
+    # Whitted inputs, which stand in the kernels line)
+    for label, a in (("primary", (scene, o, d, t0, everyone)), ("bounce", bargs)):
+        r = compare("occluded", label, lambda a=a: occluded(*a), lambda a=a: occluded_plain(*a),
+                    a[1].shape[0], work_of(a, stack_tables[:2], 2, stack_walk._walk_plain))
+        print(f"  occluded {int(r['got']['out'].sum())}")
+        keep("occluded", r)
     wo, wd = cam_mod.full_frame_rays(camera, device=dev)
 
     # --- 3b. the link walk and the wide walk, main-path inputs --------------
@@ -440,7 +455,8 @@ def main() -> int:
         ch, ch_plain = getattr(mod, kc), getattr(mod, f"{kc}_plain")
         oc, oc_plain = getattr(mod, ko), getattr(mod, f"{ko}_plain")
         at0, _ = intersect.primitive_hits(sc, o, d)
-        for label, a in (("primary", (sc, o, d, at0, everyone)), ("bounce", bounce_rays(sc))):
+        ray_sets = (("primary", (sc, o, d, at0, everyone)), ("bounce", bounce_rays(sc)))
+        for label, a in ray_sets:
             r = compare(kc, f"{acc} {label}", lambda a=a: ch(*a), lambda a=a: ch_plain(*a),
                         a[1].shape[0], work_of(a, names, slabs))
             print(f"  mean steps {float(r['got']['traversed'].float().mean()):.3f}, tests "
@@ -456,6 +472,11 @@ def main() -> int:
                         lambda a=a: oc_plain(*a), a[1].shape[0],
                         work_of(a, names[:-1], slabs, mod._walk_plain))
             print(f"  mask {int(a[4].sum())}, occluded {int(r['got']['out'].sum())}")
+            keep(ko, r)
+        for label, a in ray_sets:  # and on the closest hit's rays and t0
+            r = compare(ko, f"{acc} {label}", lambda a=a: oc(*a), lambda a=a: oc_plain(*a),
+                        a[1].shape[0], work_of(a, names[:-1], slabs, mod._walk_plain))
+            print(f"  occluded {int(r['got']['out'].sum())}")
             keep(ko, r)
 
     # --- 4. the path tracer's main path --------------------------------------

@@ -21,6 +21,28 @@ fields it needs from one or two 32-byte sectors:
   hit and miss link for ray-direction octant o (64 bytes per node; the
   JAX package's `node_links` [8, 2, M]), and the forest's root list.
 
+Those are the tables the plain versions read and the tests hold to the
+JAX package's.  The CUDA walks read three tables built from them, laid out
+so that one step of a walk is one dependent round trip to one record
+(`csrc/ptraverse.cuh`):
+
+* `node_records` int32 [M, 16] (64 bytes, four 16-byte loads), the binary
+  stack walk's: row n of an interior node holds words 0-5 its left
+  child's box, 6-11 its right child's box, 12 and 13 the left and right
+  child's ref, 14 a swap mask whose bit o is set where the near child for
+  octant o is the right one (read off `nodes`' near words), 15 unused.  A
+  child ref is the child's node id for an interior child and
+  `~(count << LEAF_SHIFT | first)` (negative) for a leaf.  Leaf rows are
+  zero, except that a one-leaf tree's root row holds its box in words 0-5
+  and its ref in word 12; the walks then start at `record_root` = ~root;
+* `link_records` int32 [8, M, 8] (32 bytes, two 16-byte loads from one
+  sector), the link walk's, octant-major: record (o, n) holds words 0-5
+  node n's box, 6 its hit link for octant o where n is interior and
+  `count << LEAF_SHIFT | first` (>= 2^LEAF_SHIFT > any node id) where n is
+  a leaf, whose hit link is its miss link, 7 its miss link for octant o;
+* `tris4` float32 [S, 12]: `tris` with v0, e1 and e2 each padded to four
+  floats, three 16-byte loads per triangle.
+
 Node numbering and the triangle order inside each leaf are the JAX
 package's, so the two packages' tables compare one to one.  Every
 accelerator uses the same `tris` / `shade` slot layout, so hit ids decode
@@ -42,6 +64,11 @@ N_NEARFAR = 8
 # per-thread stack capacity of the closest-hit walk (`csrc/closest_hit.cu`
 # STACK_CAP); the walk pushes at most one far child per level of the tree
 STACK_CAP = 64
+# leaf encoding of the walk records (`csrc/ptraverse.cuh` LEAF_SHIFT, the
+# wide pack's too): count << LEAF_SHIFT | first in 31 bits
+LEAF_SHIFT = 22
+RECORD_WORDS = 16  # node_records
+LINK_RECORD_WORDS = 8  # link_records
 
 
 @dataclasses.dataclass
@@ -53,6 +80,80 @@ class PackedBVH:
     depth: int  # depth of the deepest tree, root level = 1
     links: np.ndarray | None  # int32 [M, 16] per-octant (hit, miss) links, or None
     roots: tuple  # the roots in walk order (one, unless a forest)
+    node_records: np.ndarray  # int32 [M, RECORD_WORDS]
+    record_root: int  # root, or ~root for a one-leaf tree
+    link_records: np.ndarray | None  # int32 [8, M, LINK_RECORD_WORDS], or None
+    tris4: np.ndarray  # float32 [S, 12]
+
+
+def leaf_codes(first: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """`count << LEAF_SHIFT | first` (int32) per leaf; raises where a field
+    does not fit its bits."""
+    first, count = np.asarray(first, np.int64), np.asarray(count, np.int64)
+    if first.size and (first.min() < 0 or first.max() >= 1 << LEAF_SHIFT):
+        raise ValueError(f"a leaf's first slot does not fit {LEAF_SHIFT} bits")
+    if count.size and count.max() >= 1 << (31 - LEAF_SHIFT):
+        raise ValueError(f"a leaf's triangle count does not fit {31 - LEAF_SHIFT} bits")
+    return ((count << LEAF_SHIFT) | first).astype(np.int32)
+
+
+def node_records(nodes: np.ndarray, root: int) -> tuple[np.ndarray, int]:
+    """The binary stack walk's table (module docstring) from `nodes`, and
+    the walk's start: (int32 [M, RECORD_WORDS], record_root).  Raises
+    unless every node without triangles has two distinct children."""
+    m = nodes.shape[0]
+    if m >= 1 << LEAF_SHIFT:
+        raise ValueError(f"{m} nodes: node ids do not fit {LEAF_SHIFT} bits")
+    count = nodes[:, N_COUNT]
+    nearfar = nodes[:, N_NEARFAR:].reshape(m, 8, 2)
+    # refs of every node as a child: its id, or its leaf code complemented
+    ref = np.arange(m, dtype=np.int32)
+    leaf = count > 0
+    ref[leaf] = ~leaf_codes(nodes[leaf, N_FIRST], count[leaf])
+    rec = np.zeros((m, RECORD_WORDS), np.int32)
+    interior = np.nonzero(~leaf)[0]
+    # octant 0 (no negative component) takes the left child first
+    left, right = nearfar[interior, 0, 0], nearfar[interior, 0, 1]
+    bad = (left < 0) | (right < 0) | (left == right)
+    if bad.any():
+        raise ValueError(f"interior node {int(interior[bad][0])} has not two children")
+    rec[interior, 0:6] = nodes[left, N_BMIN : N_BMAX + 3]
+    rec[interior, 6:12] = nodes[right, N_BMIN : N_BMAX + 3]
+    rec[interior, 12] = ref[left]
+    rec[interior, 13] = ref[right]
+    near = nearfar[interior, :, 0]  # [I, 8]
+    if not ((near == left[:, None]) | (near == right[:, None])).all():
+        raise ValueError("a near child is neither of its node's children")
+    rec[interior, 14] = ((near == right[:, None]) << np.arange(8)).sum(axis=1)
+    if leaf[root]:
+        rec[root, 0:6] = nodes[root, N_BMIN : N_BMAX + 3]
+        rec[root, 12] = ref[root]
+        return rec, ~int(root)
+    return rec, int(root)
+
+
+def link_records(nodes: np.ndarray, links: np.ndarray) -> np.ndarray:
+    """The link walk's table (module docstring) from `nodes` and `links`
+    [M, 16]: int32 [8, M, LINK_RECORD_WORDS]."""
+    m = nodes.shape[0]
+    if m >= 1 << LEAF_SHIFT:
+        raise ValueError(f"{m} nodes: node ids do not fit {LEAF_SHIFT} bits")
+    count = nodes[:, N_COUNT]
+    leaf = count > 0
+    hit_miss = links.reshape(m, 8, 2).transpose(1, 0, 2)  # [8, M, 2]
+    rec = np.zeros((8, m, LINK_RECORD_WORDS), np.int32)
+    rec[:, :, 0:6] = nodes[None, :, N_BMIN : N_BMAX + 3]
+    rec[:, :, 6] = hit_miss[:, :, 0]
+    rec[:, leaf, 6] = leaf_codes(nodes[leaf, N_FIRST], count[leaf])[None]
+    rec[:, :, 7] = hit_miss[:, :, 1]
+    return rec
+
+
+def tris4(tris: np.ndarray) -> np.ndarray:
+    """`tris` [S, 9] with v0, e1, e2 each padded to four floats: [S, 12]."""
+    out = np.zeros((tris.shape[0], 3, 4), np.float32)
+    out[:, :, :3] = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+    return out.reshape(-1, 12)
 
 
 def nearfar_from_children(left: np.ndarray, right: np.ndarray, axis: np.ndarray) -> np.ndarray:
@@ -113,6 +214,7 @@ def make_tables(
     nodes[:, N_FIRST] = first
     nodes[:, N_COUNT] = count
     nodes[:, N_NEARFAR:] = np.transpose(nearfar, (2, 0, 1)).reshape(m, 16)
+    records, record_root = node_records(nodes, int(root))
     return PackedBVH(
         nodes=nodes,
         tris=np.ascontiguousarray(tris, np.float32),
@@ -121,6 +223,10 @@ def make_tables(
         depth=int(depth),
         links=links,
         roots=tuple(int(r) for r in (roots or [root])),
+        node_records=records,
+        record_root=record_root,
+        link_records=None if links is None else link_records(nodes, links),
+        tris4=tris4(tris),
     )
 
 

@@ -16,18 +16,23 @@
 // walk in plain PyTorch, lockstep over rays; the closest-hit outputs agree
 // bit for bit, counters included, and so do the any-hit booleans.
 //
-// What bounds it on an H100: not bytes.  The tables of the main path's
-// scene (about 1.3k nodes at 96 bytes, 11k triangle slots at 36 + 64 bytes)
-// sit in the 50 MB L2 after the first touch.  The walk is a chain of
-// dependent loads (node record -> child records -> triangles) per thread,
-// and bounce rays diverge inside a warp.  So it is latency- and
-// divergence-bound.  What this design does about it: the host orders
-// bounce rays by (octant, previous-hit triangle) before the launch, so
-// neighbouring threads leave the same triangle in similar directions and
-// walk similar paths; a child's bounds, first slot and count are the first
-// 32 bytes of its 96-byte record, one sector; loads go through the
-// read-only path.  Making it fast (wider nodes, packets per warp,
-// persistent threads) is later work.
+// What bounds it on an H100: not bytes and not float32 operations (the
+// primary launch sits at a few per cent of either bound).  The tables of
+// the main path's scene (1,333 binary nodes, 11k triangle slots) sit in
+// the 50 MB L2, and the walk is a chain of dependent loads per thread.
+// This design walks `node_records`, where a step is one round trip, four
+// independent 16-byte loads of the node's one 64-byte record (both
+// children's boxes and refs, the near/far swap bit of every octant)
+// instead of two (the 96-byte `nodes` record's near/far pair, then 16
+// scalar loads of both children's), and `tris4`, three 16-byte loads per
+// triangle (csrc/ptraverse.cuh); the record table (85 KB on the main
+// scene) fits in L1.  That cut the kernel's time by 4-7% only: what bounds
+// it now is divergence inside a warp (the same primary rays in random
+// warps take 1.7x as long), which the host's ordering of bounce rays by
+// (octant, previous-hit triangle) already works against.  128-thread
+// blocks at 48-52 registers, no spills; the 64-entry stack stays in local
+// memory (L1-cached); a register cap for more resident warps spills and
+// is slower (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,7 +46,7 @@ constexpr int THREADS = 128;
 __global__ void __launch_bounds__(THREADS)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
-                   const int* __restrict__ nodes, const float* __restrict__ tris,
+                   const int4* __restrict__ records, const float4* __restrict__ tris4,
                    const float* __restrict__ shade, int root,
                    float* __restrict__ t_out, float* __restrict__ u_out,
                    float* __restrict__ v_out, int* __restrict__ slot_out,
@@ -51,7 +56,7 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk<false>(nodes, tris, root, crt::load_ray(o, d, i), h);
+  if (mask[i]) crt::walk<false>(records, tris4, root, crt::load_ray(o, d, i), h);
   const crt::Ids ids = crt::decode(shade, h.slot);
   t_out[i] = h.t;
   u_out[i] = h.u;
@@ -67,12 +72,12 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 __global__ void __launch_bounds__(THREADS)
 occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
-                const int* __restrict__ nodes, const float* __restrict__ tris, int root,
+                const int4* __restrict__ records, const float4* __restrict__ tris4, int root,
                 uint8_t* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk<true>(nodes, tris, root, crt::load_ray(o, d, i), h);
+  if (mask[i]) crt::walk<true>(records, tris4, root, crt::load_ray(o, d, i), h);
   occ_out[i] = h.slot >= 0 ? 1 : 0;
 }
 
@@ -81,27 +86,29 @@ occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError() of
-// the launch (0 on success).  All pointers are device pointers; the caller
-// allocates every output.
+// the launch (0 on success).  All pointers are device pointers, the tables
+// 16-byte aligned; the caller allocates every output.  `root` is the
+// scene's `record_root` (accel/pack.py).
 int crt_closest_hit(const float* o, const float* d, const float* t0, const uint8_t* mask, int n,
-                    const int* nodes, const float* tris, const float* shade, int root,
+                    const int4* records, const float4* tris4, const float* shade, int root,
                     float* t_out, float* u_out, float* v_out, int* slot_out, int* tri_out,
                     int* obj_out, int* mat_out, int* trav_out, int* test_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     closest_hit_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, nodes, tris, shade, root, t_out, u_out, v_out, slot_out, tri_out,
+        o, d, t0, mask, n, records, tris4, shade, root, t_out, u_out, v_out, slot_out, tri_out,
         obj_out, mat_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int crt_occluded(const float* o, const float* d, const float* t0, const uint8_t* mask, int n,
-                 const int* nodes, const float* tris, int root, uint8_t* occ_out, void* stream) {
+                 const int4* records, const float4* tris4, int root, uint8_t* occ_out,
+                 void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     occluded_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, nodes, tris, root, occ_out);
+        o, d, t0, mask, n, records, tris4, root, occ_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

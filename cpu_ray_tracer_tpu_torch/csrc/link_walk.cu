@@ -8,14 +8,24 @@
 // `occluded_links_plain` in ops/link_walk.py are the same walk in plain
 // PyTorch, lockstep over rays.
 //
-// What bounds it on an H100: not bytes.  The main path's forests (4-6k
-// nodes of 96 + 64 bytes, 14-20k triangle slots) sit in the 50 MB L2.  A
-// cell partition has no gaps between siblings, so a ray visits many nodes
-// whose box it enters, one dependent load chain per node (node record,
-// then its link), and bounce rays diverge inside a warp: latency- and
-// divergence-bound.  What the design does about it: no stack (the links
-// carry the order), one 32-byte sector for the bounds, first slot and
-// count, one word for the next link; loads through the read-only path.
+// What bounds it on an H100: not bytes and not float32 operations.  The
+// main path's forests (4-6k nodes, 35-43k triangle slots) sit in the 50 MB
+// L2.  A cell partition has no gaps between siblings, so a ray visits many
+// nodes whose box it enters, each visit a dependent load.  The 96-byte
+// `nodes` record and the 64-byte `links` record made a visit touch two
+// sectors in two cache lines with ten scalar loads.  This design walks
+// `link_records`, one 32-byte record per octant and node, read as two
+// 16-byte loads from one sector; the record holds the box, the hit link
+// (or the leaf's slots) and the miss link, so the next node comes out of
+// the record just visited and a ray's walk stays in its octant's slice
+// (184 KB on the main path's grid).  No stack: the links carry the order.
+// Triangles come from `tris4`, three 16-byte loads each
+// (csrc/ptraverse.cuh).  That cut the kernel's time by 3-8%: the visit was
+// already one round trip (node and link both depend on `cur` alone), and
+// the walk is less sensitive to divergence than K1 (random warps of the
+// same primary rays: 1.1x), so its length, ~7 visits per primary ray on
+// the grid against ~2.3 binary steps, is what sets it apart.  128-thread
+// blocks at 45-48 registers, no spills, no stack (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,8 +39,8 @@ constexpr int THREADS = 128;
 __global__ void __launch_bounds__(THREADS)
 closest_hit_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
                          const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
-                         const int* __restrict__ nodes, const int* __restrict__ links,
-                         const float* __restrict__ tris, const float* __restrict__ shade,
+                         const int4* __restrict__ link_records, int m,
+                         const float4* __restrict__ tris4, const float* __restrict__ shade,
                          int root, float* __restrict__ t_out, float* __restrict__ u_out,
                          float* __restrict__ v_out, int* __restrict__ slot_out,
                          int* __restrict__ tri_out, int* __restrict__ obj_out,
@@ -39,7 +49,9 @@ closest_hit_links_kernel(const float* __restrict__ o, const float* __restrict__ 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk_links<false>(nodes, links, tris, root, crt::load_ray(o, d, i), h);
+  if (mask[i]) {
+    crt::walk_links<false>(link_records, m, tris4, root, crt::load_ray(o, d, i), h);
+  }
   const crt::Ids ids = crt::decode(shade, h.slot);
   t_out[i] = h.t;
   u_out[i] = h.u;
@@ -55,12 +67,14 @@ closest_hit_links_kernel(const float* __restrict__ o, const float* __restrict__ 
 __global__ void __launch_bounds__(THREADS)
 occluded_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
-                      const int* __restrict__ nodes, const int* __restrict__ links,
-                      const float* __restrict__ tris, int root, uint8_t* __restrict__ occ_out) {
+                      const int4* __restrict__ link_records, int m,
+                      const float4* __restrict__ tris4, int root, uint8_t* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk_links<true>(nodes, links, tris, root, crt::load_ray(o, d, i), h);
+  if (mask[i]) {
+    crt::walk_links<true>(link_records, m, tris4, root, crt::load_ray(o, d, i), h);
+  }
   occ_out[i] = h.slot >= 0 ? 1 : 0;
 }
 
@@ -68,28 +82,29 @@ occluded_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 extern "C" {
 
-// As the entry points of csrc/closest_hit.cu, with the link table `links`.
+// As the entry points of csrc/closest_hit.cu, with the `m` nodes' link
+// records (16-byte aligned) and the forest's first root.
 int crt_closest_hit_links(const float* o, const float* d, const float* t0, const uint8_t* mask,
-                          int n, const int* nodes, const int* links, const float* tris,
+                          int n, const int4* link_records, int m, const float4* tris4,
                           const float* shade, int root, float* t_out, float* u_out, float* v_out,
                           int* slot_out, int* tri_out, int* obj_out, int* mat_out, int* trav_out,
                           int* test_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     closest_hit_links_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, nodes, links, tris, shade, root, t_out, u_out, v_out, slot_out,
+        o, d, t0, mask, n, link_records, m, tris4, shade, root, t_out, u_out, v_out, slot_out,
         tri_out, obj_out, mat_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int crt_occluded_links(const float* o, const float* d, const float* t0, const uint8_t* mask,
-                       int n, const int* nodes, const int* links, const float* tris, int root,
+                       int n, const int4* link_records, int m, const float4* tris4, int root,
                        uint8_t* occ_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     occluded_links_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, nodes, links, tris, root, occ_out);
+        o, d, t0, mask, n, link_records, m, tris4, root, occ_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

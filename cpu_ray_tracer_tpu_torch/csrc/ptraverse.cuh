@@ -30,6 +30,33 @@
 // `closest_hit_plain` / `occluded_plain` in ops/closest_hit.py are this walk
 // in plain PyTorch, lockstep over rays.  Built with -fmad=false, so that
 // a*b+c rounds twice as it does there.
+//
+// What bounds the walks on an H100 (read from timings of variants with
+// tools/time_walks.py, not from hardware counters; PERF.md): not bytes and
+// not float32 operations (the smoke's bound puts them at 2-10% of either).
+// Skipping the walk leaves
+// a tenth of K1's time, so the walk is the rest.  The tables below halved
+// the dependent round trips of a binary step and cut the walks' time by
+// only 3-8%; FMA contraction would cut 2-5%; 256-thread blocks change
+// nothing; capping registers to raise occupancy spills and loses.  The
+// same primary rays in random warps take 1.7x as long (K1) and 1.1x (K2):
+// what is left is SIMT divergence, lanes of a warp walking different paths
+// one after another, and the spread of block lengths.  The tables
+// (accel/pack.py) give each step one dependent round trip to one record,
+// read with 16-byte vector loads through the read-only path:
+//   * `walk` reads `node_records`: one 64-byte record per interior node
+//     holds both children's boxes, their refs (node id, or ~leaf code) and
+//     the per-octant near/far swap mask, so a step is four independent
+//     16-byte loads of the node in hand (the 96-byte `nodes` table took
+//     two round trips: the node's near/far pair, then both children);
+//   * `walk_links` reads `link_records`: per octant and node one 32-byte
+//     record, one sector, holds the box, the hit link or leaf code and the
+//     miss link, so the next node comes out of the record just visited and
+//     a ray stays in its octant's slice (184 KB on the main path's grid);
+//   * the leaf tests read `tris4`: a triangle is three 16-byte loads of
+//     v0, e1, e2 padded to four floats.
+// The walks' order, and so t/u/v, the slots and the counters, are the
+// plain versions' bit for bit; only the loads changed.
 
 #pragma once
 
@@ -37,17 +64,16 @@
 
 namespace crt {
 
-constexpr int NODE_WORDS = 24;  // accel/pack.py NODE_WORDS
-constexpr int N_FIRST = 6;
-constexpr int N_COUNT = 7;
-constexpr int N_NEARFAR = 8;
 constexpr int STACK_CAP = 64;  // accel/pack.py STACK_CAP (asserted at pack time)
-constexpr int LINK_WORDS = 16;  // accel/pack.py links: (hit, miss) per octant
+constexpr int RECORD_INT4 = 4;  // accel/pack.py node_records: 16 words
+constexpr int LINK_RECORD_INT4 = 2;  // accel/pack.py link_records: 8 words
+constexpr int TRI_FLOAT4 = 3;  // accel/pack.py tris4: 12 floats
 constexpr int WIDE = 8;  // accel/wide.py: children per wide node
 constexpr int WIDE_WORDS = 64;
 constexpr int W_CHILD = 48;
 constexpr int W_ORDER = 56;
-constexpr int LEAF_SHIFT = 22;
+constexpr int LEAF_SHIFT = 22;  // leaf code count << LEAF_SHIFT | first (accel/pack.py)
+constexpr int FIRST_MASK = (1 << LEAF_SHIFT) - 1;
 constexpr int WIDE_STACK_CAP = 32;  // accel/wide.py WIDE_STACK_CAP (asserted at pack time)
 constexpr float TRI_EPS = 1e-4f;
 constexpr float RAY_FAR = 1e34f;
@@ -95,20 +121,24 @@ __device__ __forceinline__ bool slab_box(float bminx, float bminy, float bminz, 
   return !nan && tmax >= tmin && tmin < t && tmax > 0.0f;
 }
 
-// The slab test of a node record (its first six words are the box).
+// The slab test of a box stored as six floats (the wide records).
 __device__ __forceinline__ bool slab(const float* rec, const Ray& r, float t) {
   return slab_box(__ldg(rec + 0), __ldg(rec + 1), __ldg(rec + 2), __ldg(rec + 3),
                   __ldg(rec + 4), __ldg(rec + 5), r, t);
 }
+
+__device__ __forceinline__ float f32(int w) { return __int_as_float(w); }
 
 // A triangle as the leaf tests read it: v0, e1 = v1 - v0, e2 = v2 - v0.
 struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
-__device__ __forceinline__ Tri load_tri(const float* __restrict__ tri) {
-  return Tri{__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2), __ldg(tri + 3), __ldg(tri + 4),
-             __ldg(tri + 5), __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8)};
+// Slot `slot` of `tris4` (accel/pack.py): three 16-byte loads.
+__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris4, int slot) {
+  const float4* p = tris4 + (size_t)slot * TRI_FLOAT4;
+  const float4 v0 = __ldg(p), e1 = __ldg(p + 1), e2 = __ldg(p + 2);
+  return Tri{v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
 }
 
 // One Moller-Trumbore test, exactly as packet_bvh.py:521-549: whether the
@@ -136,11 +166,11 @@ __device__ __forceinline__ bool moller_trumbore(const Tri& p, const Ray& r, floa
 // first-tested of equal hits.  With ANY_HIT it returns true at the first
 // accepted triangle.
 template <bool ANY_HIT>
-__device__ __forceinline__ bool leaf_tests(const float* __restrict__ tris, int first, int count,
-                                           const Ray& r, Hit& h) {
+__device__ __forceinline__ bool leaf_tests(const float4* __restrict__ tris4, int first,
+                                           int count, const Ray& r, Hit& h) {
   for (int k = 0; k < count; ++k) {
     float uu, vv, tt;
-    if (moller_trumbore(load_tri(tris + (size_t)(first + k) * 9), r, h.t, uu, vv, tt)) {
+    if (moller_trumbore(load_tri(tris4, first + k), r, h.t, uu, vv, tt)) {
       h.t = tt;
       h.u = uu;
       h.v = vv;
@@ -155,41 +185,51 @@ __device__ __forceinline__ bool leaf_tests(const float* __restrict__ tris, int f
   return false;
 }
 
-// The walk from `root` over the node records (accel/pack.py), updating `h`
-// (which starts as no_hit(t0)).
+// The leaf tests of a leaf code `count << LEAF_SHIFT | first`.
 template <bool ANY_HIT>
-__device__ __forceinline__ void walk(const int* __restrict__ nodes,
-                                     const float* __restrict__ tris, int root, const Ray& r,
+__device__ __forceinline__ bool leaf_code_tests(const float4* __restrict__ tris4, int code,
+                                                const Ray& r, Hit& h) {
+  return leaf_tests<ANY_HIT>(tris4, code & FIRST_MASK, code >> LEAF_SHIFT, r, h);
+}
+
+// The walk from `root` over `node_records` (accel/pack.py), updating `h`
+// (which starts as no_hit(t0)).  `root` is the root's node id, or ~id for
+// a one-leaf tree, whose row holds its box and leaf ref.
+template <bool ANY_HIT>
+__device__ __forceinline__ void walk(const int4* __restrict__ records,
+                                     const float4* __restrict__ tris4, int root, const Ray& r,
                                      Hit& h) {
-  const float* fnodes = reinterpret_cast<const float*>(nodes);
-  const int oct = octant(r);
-  const int root_count = __ldg(nodes + root * NODE_WORDS + N_COUNT);
-  if (root_count > 0) {
+  if (root < 0) {
     // a one-leaf tree: no interior node to step on; its box, then its
     // triangles (the JAX package's link walk takes this case)
-    if (slab(fnodes + root * NODE_WORDS, r, h.t)) {
-      leaf_tests<ANY_HIT>(tris, __ldg(nodes + root * NODE_WORDS + N_FIRST), root_count, r, h);
+    const int4* rec = records + (size_t)(~root) * RECORD_INT4;
+    const int4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q3 = __ldg(rec + 3);
+    if (slab_box(f32(q0.x), f32(q0.y), f32(q0.z), f32(q0.w), f32(q1.x), f32(q1.y), r, h.t)) {
+      leaf_code_tests<ANY_HIT>(tris4, ~q3.x, r, h);
     }
     return;
   }
+  const int oct = octant(r);
   int stack[STACK_CAP];
   int sp = 0;
   int cur = root;
   while (cur >= 0) {
     ++h.traversed;
-    const int* rec = nodes + cur * NODE_WORDS + N_NEARFAR + 2 * oct;
-    const int near = __ldg(rec), far = __ldg(rec + 1);
-    const int* nrec = nodes + near * NODE_WORDS;
-    const int* frec = nodes + far * NODE_WORDS;
-    const bool hit_n = slab(fnodes + near * NODE_WORDS, r, h.t);
-    const bool hit_f = slab(fnodes + far * NODE_WORDS, r, h.t);
-    const int count_n = __ldg(nrec + N_COUNT), count_f = __ldg(frec + N_COUNT);
-    if (hit_n && count_n > 0 && leaf_tests<ANY_HIT>(tris, __ldg(nrec + N_FIRST), count_n, r, h))
-      return;
-    if (hit_f && count_f > 0 && leaf_tests<ANY_HIT>(tris, __ldg(frec + N_FIRST), count_f, r, h))
-      return;
-    const bool go_n = hit_n && count_n == 0;
-    const bool go_f = hit_f && count_f == 0;
+    // the one dependent round trip of the step: the whole record at once
+    const int4* rec = records + (size_t)cur * RECORD_INT4;
+    const int4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q2 = __ldg(rec + 2), q3 = __ldg(rec + 3);
+    const bool hit_l =
+        slab_box(f32(q0.x), f32(q0.y), f32(q0.z), f32(q0.w), f32(q1.x), f32(q1.y), r, h.t);
+    const bool hit_r =
+        slab_box(f32(q1.z), f32(q1.w), f32(q2.x), f32(q2.y), f32(q2.z), f32(q2.w), r, h.t);
+    const bool swap = (q3.z >> oct) & 1;
+    const int near = swap ? q3.y : q3.x, far = swap ? q3.x : q3.y;
+    const bool hit_n = swap ? hit_r : hit_l, hit_f = swap ? hit_l : hit_r;
+    // a negative ref is a leaf: ~(count << LEAF_SHIFT | first)
+    if (hit_n && near < 0 && leaf_code_tests<ANY_HIT>(tris4, ~near, r, h)) return;
+    if (hit_f && far < 0 && leaf_code_tests<ANY_HIT>(tris4, ~far, r, h)) return;
+    const bool go_n = hit_n && near >= 0;
+    const bool go_f = hit_f && far >= 0;
     if (go_n && go_f && sp < STACK_CAP) stack[sp++] = far;
     if (go_n) {
       cur = near;
@@ -202,28 +242,30 @@ __device__ __forceinline__ void walk(const int* __restrict__ nodes,
 }
 
 // The link walk over a tree threaded with per-octant hit and miss links
-// (accel/cell_tree.py, accel/pack.py `links`), as the TPU's `_kernel`
-// (cpu_ray_tracer_tpu/ops/pallas/packet_bvh.py:133) walks it, per ray and
-// with the ray's own octant: visit the node, slab-test it against the
-// current t, test a hit leaf's triangles; then take the hit link where an
-// interior node was hit and the miss link otherwise, until -1.  A forest's
-// roots are chained through the miss links, so the walk starts at the
-// first root and needs no stack.  `traversed` counts every node visited.
+// (accel/cell_tree.py, accel/pack.py `link_records`), as the TPU's
+// `_kernel` (cpu_ray_tracer_tpu/ops/pallas/packet_bvh.py:133) walks it, per
+// ray and with the ray's own octant: visit the node, slab-test it against
+// the current t, test a hit leaf's triangles; then take the hit link where
+// an interior node was hit and the miss link otherwise, until -1.  A
+// forest's roots are chained through the miss links, so the walk starts at
+// the first root and needs no stack.  `traversed` counts every node
+// visited.  `m` is the node count: octant o's records start at o * m.
 template <bool ANY_HIT>
-__device__ __forceinline__ void walk_links(const int* __restrict__ nodes,
-                                           const int* __restrict__ links,
-                                           const float* __restrict__ tris, int root, const Ray& r,
-                                           Hit& h) {
-  const float* fnodes = reinterpret_cast<const float*>(nodes);
-  const int* olinks = links + 2 * octant(r);
+__device__ __forceinline__ void walk_links(const int4* __restrict__ link_records, int m,
+                                           const float4* __restrict__ tris4, int root,
+                                           const Ray& r, Hit& h) {
+  const int4* orecs = link_records + (size_t)octant(r) * m * LINK_RECORD_INT4;
   int cur = root;
   while (cur >= 0) {
     ++h.traversed;
-    const int* rec = nodes + cur * NODE_WORDS;
-    const bool hit = slab(fnodes + cur * NODE_WORDS, r, h.t);
-    const int count = __ldg(rec + N_COUNT);
-    if (hit && count > 0 && leaf_tests<ANY_HIT>(tris, __ldg(rec + N_FIRST), count, r, h)) return;
-    cur = __ldg(olinks + cur * LINK_WORDS + (hit && count == 0 ? 0 : 1));
+    const int4* rec = orecs + (size_t)cur * LINK_RECORD_INT4;
+    const int4 a = __ldg(rec), b = __ldg(rec + 1);
+    const bool hit = slab_box(f32(a.x), f32(a.y), f32(a.z), f32(a.w), f32(b.x), f32(b.y), r, h.t);
+    // word 6: the hit link of an interior node (a node id < 2^LEAF_SHIFT),
+    // or a leaf's code (count >= 1, so >= 2^LEAF_SHIFT)
+    const bool leaf = b.z > FIRST_MASK;
+    if (hit && leaf && leaf_code_tests<ANY_HIT>(tris4, b.z, r, h)) return;
+    cur = hit && !leaf ? b.z : b.w;
   }
 }
 
@@ -253,7 +295,8 @@ __device__ __forceinline__ int nearest_child(int bits, int ow) {
 template <bool ANY_HIT>
 __device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
                                           const int* __restrict__ roots, int n_roots,
-                                          const float* __restrict__ tris, const Ray& r, Hit& h) {
+                                          const float4* __restrict__ tris4, const Ray& r,
+                                          Hit& h) {
   const float* fw = reinterpret_cast<const float*>(wnodes);
   const int oct = octant(r);
   int stack[WIDE_STACK_CAP];
@@ -273,7 +316,7 @@ __device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
       const int c = __ldg(rec + W_CHILD + k);
       const int count = c >> LEAF_SHIFT;
       if (count > 0) {
-        if (leaf_tests<ANY_HIT>(tris, c & ((1 << LEAF_SHIFT) - 1), count, r, h)) return;
+        if (leaf_tests<ANY_HIT>(tris4, c & FIRST_MASK, count, r, h)) return;
       } else if (c > 0) {
         ibits |= 1 << k;
       }

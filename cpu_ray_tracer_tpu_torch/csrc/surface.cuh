@@ -89,8 +89,8 @@ struct Surface {
 // (tlas_file_scene.cpp:220-260): light quad, floor, then the BVH walk if
 // `walk_bvh`; normal, uv and material id; back-face flip.
 __device__ __forceinline__ Surface nearest_surface(const float* s, int n_mats,
-                                                   const int* __restrict__ nodes,
-                                                   const float* __restrict__ tris,
+                                                   const int4* __restrict__ records,
+                                                   const float4* __restrict__ tris4,
                                                    const float* __restrict__ shade, int root,
                                                    const Ray& r, bool walk_bvh) {
   float t = RAY_FAR, t_q;
@@ -101,7 +101,7 @@ __device__ __forceinline__ Surface nearest_surface(const float* s, int n_mats,
   const bool hit_f = t_f < t && t_f > 0.0f;
   if (hit_f) t = t_f;
   Hit h = no_hit(t);
-  if (walk_bvh) walk<false>(nodes, tris, root, r, h);
+  if (walk_bvh) walk<false>(records, tris4, root, r, h);
   Surface o;
   o.t = h.t;
   o.slot = h.slot;

@@ -45,8 +45,8 @@ using namespace crt;
 __global__ void __launch_bounds__(THREADS)
 wavefront_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const int64_t* __restrict__ seed_in, const uint8_t* __restrict__ alive_in,
-                 const uint8_t* __restrict__ inside_in, int n, const int* __restrict__ nodes,
-                 const float* __restrict__ tris, const float* __restrict__ shade, int root,
+                 const uint8_t* __restrict__ inside_in, int n, const int4* __restrict__ records,
+                 const float4* __restrict__ tris4, const float* __restrict__ shade, int root,
                  const float* __restrict__ params, int n_mats, int k_depths, int depth_limit,
                  int depth_base, float* __restrict__ tp_out, float* __restrict__ o_out,
                  float* __restrict__ d_out, int64_t* __restrict__ seed_out,
@@ -82,7 +82,7 @@ wavefront_kernel(const float* __restrict__ o, const float* __restrict__ d,
     if (threadIdx.x == 0 && live > 0) atomicAdd(live_out + depth, live);
     int tex = -1;
     if (alive) {
-      const Surface sf = nearest_surface(s, n_mats, nodes, tris, shade, root,
+      const Surface sf = nearest_surface(s, n_mats, records, tris4, shade, root,
                                          make_ray(ox, oy, oz, dx, dy, dz), true);
       trav += sf.traversed;
       test += sf.tested;
@@ -183,7 +183,7 @@ extern "C" {
 // and `inside` may be null (all alive, none inside); `live_out` [k_depths]
 // must be zeroed by the caller.
 int crt_wavefront_pt(const float* o, const float* d, const int64_t* seed, const uint8_t* alive,
-                     const uint8_t* inside, int n, const int* nodes, const float* tris,
+                     const uint8_t* inside, int n, const int4* records, const float4* tris4,
                      const float* shade, int root, const float* params, int n_mats,
                      int k_depths, int depth_limit, int depth_base, float* tp_out, float* o_out,
                      float* d_out, int64_t* seed_out, uint8_t* missed_out, uint8_t* lit_out,
@@ -192,7 +192,7 @@ int crt_wavefront_pt(const float* o, const float* d, const int64_t* seed, const 
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     wavefront_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, seed, alive, inside, n, nodes, tris, shade, root, params, n_mats, k_depths,
+        o, d, seed, alive, inside, n, records, tris4, shade, root, params, n_mats, k_depths,
         depth_limit, depth_base, tp_out, o_out, d_out, seed_out, missed_out, lit_out, alive_out,
         inside_out, tex_out, locus_out, trav_out, test_out, live_out);
   }

@@ -33,7 +33,7 @@ constexpr int F_MISS = 1, F_LIT = 2, F_SURF = 4, F_VIS = 8, F_EMIT1 = 16, F_EMIT
 __global__ void __launch_bounds__(THREADS)
 whitted_kernel(const float* __restrict__ o, const float* __restrict__ d,
                const uint8_t* __restrict__ alive_in, const uint8_t* __restrict__ inside_in, int n,
-               const int* __restrict__ nodes, const float* __restrict__ tris,
+               const int4* __restrict__ records, const float4* __restrict__ tris4,
                const float* __restrict__ shade, int root, const float* __restrict__ params,
                int n_mats, int shadow_quirk, float* __restrict__ t_out,
                int* __restrict__ flags_out, int* __restrict__ mat_out, int* __restrict__ tex_out,
@@ -47,7 +47,7 @@ whitted_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const bool alive = alive_in == nullptr || alive_in[i] != 0;
   const bool inside = inside_in != nullptr && inside_in[i] != 0;
   const Ray r = load_ray(o, d, i);
-  const Surface sf = nearest_surface(s, n_mats, nodes, tris, shade, root, r, alive);
+  const Surface sf = nearest_surface(s, n_mats, records, tris4, shade, root, r, alive);
   const bool hit = alive && sf.obj >= 0;
   const bool miss = alive && sf.obj < 0;
   const int mat = sf.mat;
@@ -75,7 +75,7 @@ whitted_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const bool occ_q = quad_hit(s, sox, soy, soz, ldx, ldy, ldz, dmax, t_q);
     if (ndotl >= SHADE_EPS && !occ_q) {
       Hit sh = no_hit(shadow_quirk ? RAY_FAR : dmax);
-      walk<true>(nodes, tris, root, make_ray(sox, soy, soz, ldx, ldy, ldz), sh);
+      walk<true>(records, tris4, root, make_ray(sox, soy, soz, ldx, ldy, ldz), sh);
       vis = sh.slot < 0;
     }
     const float att = 1.0f / fmaxf(dist * dist, 1e-20f);
@@ -110,14 +110,14 @@ extern "C" {
 // Launches on `stream`; returns cudaGetLastError() of the launch.  `alive`
 // and `inside` may be null (all alive, none inside).
 int crt_whitted_wf(const float* o, const float* d, const uint8_t* alive, const uint8_t* inside,
-                   int n, const int* nodes, const float* tris, const float* shade, int root,
+                   int n, const int4* records, const float4* tris4, const float* shade, int root,
                    const float* params, int n_mats, int shadow_quirk, float* t_out,
                    int* flags_out, int* mat_out, int* tex_out, float* irr_out, float* rdir_out,
                    float* tdir_out, float* fr_out, int* trav_out, int* test_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     whitted_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, alive, inside, n, nodes, tris, shade, root, params, n_mats, shadow_quirk, t_out,
+        o, d, alive, inside, n, records, tris4, shade, root, params, n_mats, shadow_quirk, t_out,
         flags_out, mat_out, tex_out, irr_out, rdir_out, tdir_out, fr_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -9,7 +9,8 @@
 // the same walk in plain PyTorch, lockstep over rays.
 //
 // What bounds it on an H100: not bytes.  The main path's wide tree (221
-// nodes of 256 bytes) and the binary triangle slots sit in the 50 MB L2.
+// nodes of 256 bytes) and the binary triangle slots (`tris4`, three
+// 16-byte loads per triangle) sit in the 50 MB L2.
 // A step reads one 256-byte record (8 boxes, 8 child words, the order
 // word) and runs 8 independent slab tests, so a ray takes about a third
 // of the binary walk's dependent steps; what remains is latency of those
@@ -31,7 +32,7 @@ __global__ void __launch_bounds__(THREADS)
 closest_hit_wide_kernel(const float* __restrict__ o, const float* __restrict__ d,
                         const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
                         const int* __restrict__ wnodes, const int* __restrict__ roots,
-                        int n_roots, const float* __restrict__ tris,
+                        int n_roots, const float4* __restrict__ tris4,
                         const float* __restrict__ shade, float* __restrict__ t_out,
                         float* __restrict__ u_out, float* __restrict__ v_out,
                         int* __restrict__ slot_out, int* __restrict__ tri_out,
@@ -40,7 +41,7 @@ closest_hit_wide_kernel(const float* __restrict__ o, const float* __restrict__ d
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk_wide<false>(wnodes, roots, n_roots, tris, crt::load_ray(o, d, i), h);
+  if (mask[i]) crt::walk_wide<false>(wnodes, roots, n_roots, tris4, crt::load_ray(o, d, i), h);
   const crt::Ids ids = crt::decode(shade, h.slot);
   t_out[i] = h.t;
   u_out[i] = h.u;
@@ -57,11 +58,11 @@ __global__ void __launch_bounds__(THREADS)
 occluded_wide_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
                      const int* __restrict__ wnodes, const int* __restrict__ roots, int n_roots,
-                     const float* __restrict__ tris, uint8_t* __restrict__ occ_out) {
+                     const float4* __restrict__ tris4, uint8_t* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk_wide<true>(wnodes, roots, n_roots, tris, crt::load_ray(o, d, i), h);
+  if (mask[i]) crt::walk_wide<true>(wnodes, roots, n_roots, tris4, crt::load_ray(o, d, i), h);
   occ_out[i] = h.slot >= 0 ? 1 : 0;
 }
 
@@ -73,25 +74,25 @@ extern "C" {
 // wide node records and the `n_roots` wide roots.
 int crt_closest_hit_wide(const float* o, const float* d, const float* t0, const uint8_t* mask,
                          int n, const int* wnodes, const int* roots, int n_roots,
-                         const float* tris, const float* shade, float* t_out, float* u_out,
+                         const float4* tris4, const float* shade, float* t_out, float* u_out,
                          float* v_out, int* slot_out, int* tri_out, int* obj_out, int* mat_out,
                          int* trav_out, int* test_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     closest_hit_wide_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, wnodes, roots, n_roots, tris, shade, t_out, u_out, v_out, slot_out,
+        o, d, t0, mask, n, wnodes, roots, n_roots, tris4, shade, t_out, u_out, v_out, slot_out,
         tri_out, obj_out, mat_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int crt_occluded_wide(const float* o, const float* d, const float* t0, const uint8_t* mask,
-                      int n, const int* wnodes, const int* roots, int n_roots, const float* tris,
+                      int n, const int* wnodes, const int* roots, int n_roots, const float4* tris4,
                       uint8_t* occ_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
     occluded_wide_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, wnodes, roots, n_roots, tris, occ_out);
+        o, d, t0, mask, n, wnodes, roots, n_roots, tris4, occ_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -244,11 +244,16 @@ def _rays(what, o, d, t0, mask) -> torch.Tensor:
     return mask
 
 
-def _tables(what, scene, device) -> None:
+def stack_tables(what, scene, device) -> list:
+    """Check the binary walk's tables on `device`; returns the launch
+    arguments `node_records`, `tris4` (pointers) and `record_root`.  The
+    wavefront and Whitted kernels take them too."""
     kernel_lib.require(
-        what, device, nodes=(scene.nodes, torch.int32, None),
-        tris=(scene.tris, torch.float32, None), shade=(scene.shade, torch.float32, None),
+        what, device, node_records=(scene.node_records, torch.int32, None),
+        tris4=(scene.tris4, torch.float32, None), shade=(scene.shade, torch.float32, None),
     )
+    kernel_lib.require_aligned(what, node_records=scene.node_records, tris4=scene.tris4)
+    return [scene.node_records.data_ptr(), scene.tris4.data_ptr(), scene.record_root]
 
 
 def closest_hit(scene, o, d, t0, mask=None) -> dict:
@@ -256,9 +261,9 @@ def closest_hit(scene, o, d, t0, mask=None) -> dict:
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if kernel_lib.on_cpu("closest_hit", o):
         return closest_hit_plain(scene, o, d, t0, mask)
-    _tables("closest_hit", scene, o.device)
-    out = launch_closest("closest_hit", "crt_closest_hit", o, d, t0, mask, [
-        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.shade.data_ptr(), scene.root])
+    records, tris4, root = stack_tables("closest_hit", scene, o.device)
+    out = launch_closest("closest_hit", "crt_closest_hit", o, d, t0, mask,
+                         [records, tris4, scene.shade.data_ptr(), root])
     closest_hit.launches += 1
     return out
 
@@ -269,9 +274,8 @@ def occluded(scene, o, d, t0, mask=None) -> torch.Tensor:
     kernel for CUDA tensors."""
     if kernel_lib.on_cpu("occluded", o):
         return occluded_plain(scene, o, d, t0, mask)
-    _tables("occluded", scene, o.device)
-    out = launch_occluded("occluded", "crt_occluded", o, d, t0, mask, [
-        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.root])
+    out = launch_occluded("occluded", "crt_occluded", o, d, t0, mask,
+                          stack_tables("occluded", scene, o.device))
     occluded.launches += 1
     return out
 

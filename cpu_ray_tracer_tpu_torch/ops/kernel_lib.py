@@ -40,40 +40,41 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "crt_closest_hit": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _ptr, _int,  # nodes, tris, shade, root
+        _ptr, _ptr, _ptr, _int,  # node records, tris4, shade, record root
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int,  # nodes, tris, root
+        _ptr, _ptr, _int,  # node records, tris4, record root
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_closest_hit_links": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _ptr, _ptr, _int,  # nodes, links, tris, shade, root
+        _ptr, _int, _ptr, _ptr, _int,  # link records, node count, tris4, shade, root
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded_links": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _ptr, _int,  # nodes, links, tris, root
+        _ptr, _int, _ptr, _int,  # link records, node count, tris4, root
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_closest_hit_wide": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int, _ptr, _ptr,  # wide nodes, wide roots, n_roots, tris, shade
+        _ptr, _ptr, _int, _ptr, _ptr,  # wide nodes, wide roots, n_roots, tris4, shade
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded_wide": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int, _ptr,  # wide nodes, wide roots, n_roots, tris
+        _ptr, _ptr, _int, _ptr,  # wide nodes, wide roots, n_roots, tris4
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_wavefront_pt": [
         _ptr, _ptr, _ptr, _ptr, _ptr, _int,  # o, d, seed, alive, inside, n
-        _ptr, _ptr, _ptr, _int, _ptr, _int,  # nodes, tris, shade, root, params, n_mats
+        _ptr, _ptr, _ptr, _int, _ptr, _int,  # node records, tris4, shade, record root,
+        #                                      params, n_mats
         _int, _int, _int,  # k_depths, depth_limit, depth_base
         *[_ptr] * 13,  # tp, o, d, seed, missed, lit, alive, inside, tex, locus,
         #                traversed, tested, live
@@ -81,8 +82,8 @@ _SIGNATURES = {
     ],
     "crt_whitted_wf": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, alive, inside, n
-        _ptr, _ptr, _ptr, _int, _ptr, _int, _int,  # nodes, tris, shade, root, params,
-        #                                            n_mats, shadow_quirk
+        _ptr, _ptr, _ptr, _int, _ptr, _int, _int,  # node records, tris4, shade, record
+        #                                            root, params, n_mats, shadow_quirk
         *[_ptr] * 10,  # t, flags, mat, tex, irr, r_dir, t_dir, fr, traversed, tested
         _ptr,  # stream
     ],
@@ -200,6 +201,15 @@ def on_cpu(what: str, x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     return False
+
+
+def require_aligned(what: str, **tensors) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as
+    the kernels' vector loads of `int4` / `float4` records need (a view at
+    an offset may not)."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned (data_ptr {x.data_ptr():#x})")
 
 
 def require(what: str, device, **tensors) -> None:

@@ -80,12 +80,15 @@ def _has_tables(what, scene) -> None:
 
 
 def _tables(what, scene, device) -> list:
+    """Check the link walk's tables on `device`; returns the launch
+    arguments `link_records`, the node count and `tris4`."""
+    m = scene.nodes.shape[0]
     kernel_lib.require(
-        what, device, nodes=(scene.nodes, torch.int32, None),
-        links=(scene.links, torch.int32, None), tris=(scene.tris, torch.float32, None),
-        shade=(scene.shade, torch.float32, None),
+        what, device, link_records=(scene.link_records, torch.int32, (8, m, 8)),
+        tris4=(scene.tris4, torch.float32, None), shade=(scene.shade, torch.float32, None),
     )
-    return [scene.nodes.data_ptr(), scene.links.data_ptr(), scene.tris.data_ptr()]
+    kernel_lib.require_aligned(what, link_records=scene.link_records, tris4=scene.tris4)
+    return [scene.link_records.data_ptr(), m, scene.tris4.data_ptr()]
 
 
 def closest_hit_links(scene, o, d, t0, mask=None) -> dict:

@@ -32,7 +32,7 @@ import torch
 
 from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import rng
-from cpu_ray_tracer_tpu_torch.ops import kernel_lib, surface
+from cpu_ray_tracer_tpu_torch.ops import closest_hit, kernel_lib, surface
 
 _F32 = torch.float32
 _KEYS = ("tp", "o", "d", "seed", "missed", "lit", "alive", "inside", "tex_idx", "locus",
@@ -157,9 +157,8 @@ def trace(scene, o, d, seeds, k_depths: int, depth_limit: int,
         "wavefront_pt.trace", dev,
         o=(o, _F32, (r, 3)), d=(d, _F32, (r, 3)), seeds=(seeds, torch.int64, (r,)),
         alive=(alive, torch.bool, (r,)), inside=(inside, torch.bool, (r,)),
-        nodes=(scene.nodes, torch.int32, None), tris=(scene.tris, _F32, None),
-        shade=(scene.shade, _F32, None),
     )
+    records, tris4, root = closest_hit.stack_tables("wavefront_pt.trace", scene, dev)
     params = surface.params(scene)
     k = kernel_lib.load()
     f32 = dict(dtype=_F32, device=dev)
@@ -175,8 +174,8 @@ def trace(scene, o, d, seeds, k_depths: int, depth_limit: int,
     )
     code = k.lib.crt_wavefront_pt(
         o.data_ptr(), d.data_ptr(), seeds.data_ptr(), kernel_lib.ptr(alive),
-        kernel_lib.ptr(inside), r, scene.nodes.data_ptr(), scene.tris.data_ptr(),
-        scene.shade.data_ptr(), scene.root, params.data_ptr(), scene.material_count,
+        kernel_lib.ptr(inside), r, records, tris4, scene.shade.data_ptr(), root,
+        params.data_ptr(), scene.material_count,
         k_depths, depth_limit, depth_base,
         *(out[key].data_ptr() for key in (*_KEYS, "live_counts")),
         kernel_lib.stream(dev),

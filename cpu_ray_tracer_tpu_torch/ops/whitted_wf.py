@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from cpu_ray_tracer_tpu_torch import constants
-from cpu_ray_tracer_tpu_torch.ops import intersect, kernel_lib, surface
+from cpu_ray_tracer_tpu_torch.ops import closest_hit, intersect, kernel_lib, surface
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import occluded_plain
 
 F_MISS, F_LIT, F_SURF, F_VIS, F_EMIT1, F_EMIT2 = 1, 2, 4, 8, 16, 32  # whitted_wf.py:62-67
@@ -94,9 +94,8 @@ def trace_level0(scene, o, d, inside=None, alive=None) -> dict:
         "whitted_wf.trace_level0", dev,
         o=(o, _F32, (r, 3)), d=(d, _F32, (r, 3)),
         inside=(inside, torch.bool, (r,)), alive=(alive, torch.bool, (r,)),
-        nodes=(scene.nodes, torch.int32, None), tris=(scene.tris, _F32, None),
-        shade=(scene.shade, _F32, None),
     )
+    records, tris4, root = closest_hit.stack_tables("whitted_wf.trace_level0", scene, dev)
     params = surface.params(scene)
     k = kernel_lib.load()
     f32 = dict(dtype=_F32, device=dev)
@@ -109,8 +108,8 @@ def trace_level0(scene, o, d, inside=None, alive=None) -> dict:
     )
     code = k.lib.crt_whitted_wf(
         o.data_ptr(), d.data_ptr(), kernel_lib.ptr(alive), kernel_lib.ptr(inside), r,
-        scene.nodes.data_ptr(), scene.tris.data_ptr(), scene.shade.data_ptr(), scene.root,
-        params.data_ptr(), scene.material_count, int(scene.shadow_quirk),
+        records, tris4, scene.shade.data_ptr(), root, params.data_ptr(), scene.material_count,
+        int(scene.shadow_quirk),
         *(out[key].data_ptr() for key in (
             "t", "flags", "mat", "tex_idx", "irr_scale", "r_dir", "t_dir", "fr",
             "traversed", "tested",

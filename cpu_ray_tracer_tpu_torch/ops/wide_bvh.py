@@ -140,10 +140,11 @@ def _tables(what, scene, device) -> list:
     kernel_lib.require(
         what, device, wide_nodes=(scene.wide_nodes, torch.int32, None),
         wide_roots=(scene.wide_roots, torch.int32, None),
-        tris=(scene.tris, torch.float32, None), shade=(scene.shade, torch.float32, None),
+        tris4=(scene.tris4, torch.float32, None), shade=(scene.shade, torch.float32, None),
     )
+    kernel_lib.require_aligned(what, tris4=scene.tris4)
     return [scene.wide_nodes.data_ptr(), scene.wide_roots.data_ptr(), scene.wide_roots.numel(),
-            scene.tris.data_ptr()]
+            scene.tris4.data_ptr()]
 
 
 def closest_hit_wide(scene, o, d, t0, mask=None) -> dict:

@@ -8,6 +8,14 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
 * `links` (cell forests) and `wide_nodes`, `wide_roots` (a wide BVH): the
   tables of the link walk and the wide walk, None where absent; `roots`,
   the forest's roots in walk order;
+* the tables the CUDA walks read, built from those (`accel/pack.py`):
+  `node_records` int32 [M, 16] (the binary stack walk: both children's
+  boxes and refs and the per-octant swap mask in one 64-byte record per
+  interior node) with its start `record_root` (the root, or ~root for a
+  one-leaf tree); `link_records` int32 [8, M, 8] (the link walk: box, hit
+  link or leaf, miss link in one 32-byte record per octant and node; None
+  without `links`); `tris4` float32 [S, 12] (`tris` with v0, e1, e2
+  padded to 16 bytes each);
 * `walk`: which kernel answers the scene's closest-hit and any-hit
   queries: "stack" (the binary walk, `ops/closest_hit.py`), "links" (the
   grid and KD cell forests, `ops/link_walk.py`) or "wide" (`ops/wide_bvh.py`);
@@ -87,6 +95,10 @@ class DeviceScene(nn.Module):
         self.depth = packed.depth
         self.root_is_leaf = bool(packed.nodes[packed.root, N_COUNT] > 0)
         buf("links", packed.links, np.int32)
+        buf("node_records", packed.node_records, np.int32)
+        self.record_root = packed.record_root
+        buf("link_records", packed.link_records, np.int32)
+        buf("tris4", packed.tris4, np.float32)
         buf("wide_nodes", None if wide is None else wide.nodes, np.int32)
         buf("wide_roots", None if wide is None else wide.roots, np.int32)
         if packed.links is not None:

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_ray_tracer_tpu_torch.accel import pack
 from cpu_ray_tracer_tpu_torch.ops import (
     kernel_lib, link_walk, surface, wavefront_pt, whitted_wf, wide_bvh,
 )
@@ -123,3 +124,22 @@ def test_wrappers_reject_other_devices():
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def test_walk_records_follow_the_header_layout():
+    """The walk records' sizes and leaf encoding (accel/pack.py) against the
+    constants csrc/ptraverse.cuh reads them with."""
+    c = _constants("ptraverse.cuh")
+    assert c["LEAF_SHIFT"] == pack.LEAF_SHIFT and c["STACK_CAP"] == pack.STACK_CAP
+    assert 4 * c["RECORD_INT4"] == pack.RECORD_WORDS
+    assert 4 * c["LINK_RECORD_INT4"] == pack.LINK_RECORD_WORDS
+    scene, _ = compile_scene(os.path.join(SCENES, "cube_scene.xml"), device="cpu")
+    assert 4 * c["TRI_FLOAT4"] == scene.tris4.shape[1]
+
+
+def test_vector_loads_need_aligned_tables():
+    """The walks load 16-byte records: a table view at an offset is refused."""
+    records = torch.zeros((4, 16), dtype=torch.int32)
+    kernel_lib.require_aligned("walk", node_records=records)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel_lib.require_aligned("walk", node_records=records.view(-1)[1:])
