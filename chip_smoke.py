@@ -12,8 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    paths' inputs (`bunny_teapot.xml`, 1280x720, the `bench.py` camera):
    closest hit on the primary rays and on the live bounce rays after the
    first hit, in the order the path tracer launches them; the wavefront
-   path tracer on the 921,600 primary rays with k = 1 and on 65,536 of
-   them with k = 6; the Whitted level kernel and the any hit on the
+   path tracer on the 921,600 primary rays with k = 1 in the camera's lane
+   order (`core/camera.lane_order`, as `render_pass` passes it) and on
+   65,536 of them with k = 6, and timed at k = 6 on all 921,600 rays in
+   pixel order (as `render_pass(wavefront_depths=6)` runs it); the
+   Whitted level kernel and the any hit on the
    arguments that a Whitted frame passes them at levels 0 and 1 (recorded
    from a render through each level route: the level kernel's `inside`,
    the host route's shadow query over every ray of a level, masked to the
@@ -58,6 +61,19 @@ The accelerator interchange, on the same scene and camera:
 6b. 64x40 card against CPU for the four configurations: path tracer
     (`rays_traced` exact) and Whitted, at their defaults.
 
+Scenes past the walk records' old limits (`scene/synthetic.py`):
+
+3c. a BVH of 140 levels (the link walk for the host queries and the link
+    branch of the wavefront and Whitted kernels), one of 100 levels (the
+    stack walk with more than 64 entries), a leaf of 600 triangles (a
+    hand-built BVH, the grid and the KD tree) and 70 cube instances whose
+    object ids pass the meta word (the slot table): every kernel each
+    scene's renders launch against its plain version on the 921,600 rays
+    of the default camera (closest and any hit; the wavefront kernel at
+    k = 2 and the Whitted level in the lane order where the scene takes
+    them), then a 64x40 path-tracer pass and Whitted frame on the card
+    against the CPU, which must launch those kernels.
+
 The TPU probes, on their own inputs (`cpu_ray_tracer_tpu_torch/benchmarks/`):
 
 7. the leaf-test probe: K6 (Moller-Trumbore per thread) on its 64 tiles of
@@ -76,8 +92,11 @@ Each drive of a main path (one pass or one frame, or one probe run) sets
 every kernel's launch count to 0 just before it and reads the counts just
 after; every kernel of the path must have launched.
 The line before the last is `{"kernels": [...]}`: per kernel its
-launches on the main paths, its time and its plain version's on the
-main path's inputs (phase 3), and its bound: the larger of the bytes it
+launches on the main paths over this run, its launches per pass and per
+frame on the default routes (`main_launches`: the path tracer at its
+default `wavefront_depths`, Whitted through its level kernel), the PR
+that redesigned it (`redesigned`), its time and its plain version's on
+the main path's inputs (phase 3), and its bound: the larger of the bytes it
 must move (its ray inputs, the scene tables of its work and its outputs,
 each once) over 3.35 TB/s and the float32 operations of its walk on these
 inputs (31 per slab test and 58 per Moller-Trumbore test of
@@ -317,7 +336,7 @@ def main() -> int:
         closest_hit, closest_hit_plain, occluded, occluded_plain,
     )
     from cpu_ray_tracer_tpu_torch.render import borderline, pathtracer, whitted
-    from cpu_ray_tracer_tpu_torch.scene import query
+    from cpu_ray_tracer_tpu_torch.scene import query, synthetic
     from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 
     kernels = dict(closest_hit=closest_hit, occluded=occluded,
@@ -391,9 +410,13 @@ def main() -> int:
     keep("closest_hit", compare("closest_hit", "bounce", lambda: closest_hit(*bargs),
                                 lambda: closest_hit_plain(*bargs), bargs[1].shape[0],
                                 work_of(bargs, stack_tables, 2)))
+    # the fused kernels take a frame's camera rays in the camera's lane
+    # order, as render_pass and whitted.render pass it
+    lanes = cam_mod.lane_order(camera, dev)
     wf_args = (scene, o, d, seeds)
     keep("wavefront_pt", compare(
-        "wavefront_pt", "k=1 primary", lambda: wavefront_pt.trace(*wf_args, 1, DEPTH),
+        "wavefront_pt", "k=1 primary, lane order",
+        lambda: wavefront_pt.trace(*wf_args, 1, DEPTH, perm=lanes),
         lambda: wavefront_pt.trace_plain(*wf_args, 1, DEPTH), n,
         work_of(wf_args, (*stack_tables, "kernel_params"), 2)))
     m = 65536  # every 14th primary ray: the whole frame, not its top rows of sky
@@ -403,6 +426,17 @@ def main() -> int:
         lambda: wavefront_pt.trace(scene, so6, sd6, ss6, 6, DEPTH),
         lambda: wavefront_pt.trace_plain(scene, so6, sd6, ss6, 6, DEPTH), m)
     print(f"  k=6 live counts {wf6['got']['live_counts'].tolist()}")
+    # k = 6 on all 921,600 rays in pixel order, as
+    # render_pass(wavefront_depths=6) runs it: timed, with its bound from
+    # its own counters and the plain version's time taken on the 65,536
+    # rays above
+    got6 = wavefront_pt.trace(*wf_args, 6, DEPTH)
+    ms6 = time_cuda(lambda: wavefront_pt.trace(*wf_args, 6, DEPTH), KERNEL_REPEATS)
+    b6 = work_of(wf_args, (*stack_tables, "kernel_params"), 2)(got6)
+    print(f"wavefront_pt k=6 all {n} rays: kernel {ms6:.4f} ms, live counts "
+          f"{got6['live_counts'].tolist()}, bound {b6['bound_ms']:.4f} ms by "
+          f"{b6['bound_by']}, share {b6['bound_ms'] / ms6:.4f} (plain on 65,536 of them: "
+          f"{wf6['plain_ms']:.1f} ms)")
     # the Whitted level kernel and the any hit on the arguments the two
     # Whitted routes pass them at levels 0 and 1 (level 1's refracted rays
     # carry `inside`; the host route's shadow query takes every ray of a
@@ -478,6 +512,89 @@ def main() -> int:
                         a[1].shape[0], work_of(a, names[:-1], slabs, mod._walk_plain))
             print(f"  occluded {int(r['got']['out'].sum())}")
             keep(ko, r)
+
+    # --- 3c. scenes past the walk records' old limits ----------------------
+    # (scene/synthetic.py) a BVH of 140 levels (the link walk, K3/K4's link
+    # branch), one of 100 (the stack walk past 64 entries), a leaf of 600
+    # triangles (BVH, grid, KD tree) and object ids past the meta word
+    limit_dir = os.path.join(REPO, "build", "smoke_scenes")
+    os.makedirs(limit_dir, exist_ok=True)
+    assets = os.path.join(REPO, "assets")
+    base_cpu, _ = compile_scene(os.path.join(assets, "scenes", "cube_scene.xml"), device="cpu")
+    big_xml = synthetic.big_leaf_xml(limit_dir, assets)
+    limits = {
+        "deep 140": synthetic.scene_over(base_cpu, synthetic.caterpillar(140)),
+        "deep 100": synthetic.scene_over(base_cpu, synthetic.caterpillar(100)),
+        "big leaf bvh": synthetic.scene_over(compile_scene(big_xml, device="cpu")[0],
+                                             synthetic.big_leaf_bvh()),
+        "big leaf grid": compile_scene(big_xml, device="cpu", accel="grid")[0],
+        "big leaf kdtree": compile_scene(big_xml, device="cpu", accel="kdtree")[0],
+        "cubes70": compile_scene(synthetic.cubes_xml(limit_dir, assets), device="cpu")[0],
+    }
+    lcam, lsmall = cam_mod.make_camera(WIDTH, HEIGHT), cam_mod.make_camera(64, 40)
+    lo, ld, ls = pathtracer.camera_rays(lcam, 1, dev)
+    llanes = cam_mod.lane_order(lcam, dev)
+    for label, sc_cpu in limits.items():
+        sc = copy.deepcopy(sc_cpu).to(dev)
+        lt0, _ = intersect.primitive_hits(sc, lo, ld)
+        a = (sc, lo, ld, lt0, everyone)
+        mod, suffix = (link_walk, "_links") if sc.walk == "links" else (stack_walk, "")
+        walk_keys = (f"closest_hit{suffix}", f"occluded{suffix}")
+        print(f"scene {label}: walk {sc.walk}, stack walk {sc.stack_walk}, fused kernels "
+              f"{sc.stack_kernels}, depth {sc.depth}, nodes {sc.nodes.shape[0]}, slots "
+              f"{sc.tris.shape[0]}, largest leaf {int(sc.nodes[:, 7].max())}, slot table "
+              f"{sc.slot_ids is not None}")
+        r = compare(walk_keys[0], f"{label} primary", lambda a=a: getattr(mod, walk_keys[0])(*a),
+                    lambda a=a: getattr(mod, f"{walk_keys[0]}_plain")(*a), n)
+        print(f"  mean steps {float(r['got']['traversed'].float().mean()):.3f}, tests "
+              f"{float(r['got']['tested'].float().mean()):.3f}, hits "
+              f"{int((r['got']['slot'] >= 0).sum())}, largest object id "
+              f"{int(r['got']['obj_id'].max())}")
+        keep(walk_keys[0], r)
+        r = compare(walk_keys[1], f"{label} primary", lambda a=a: getattr(mod, walk_keys[1])(*a),
+                    lambda a=a: getattr(mod, f"{walk_keys[1]}_plain")(*a), n)
+        keep(walk_keys[1], r)
+        expected_pass, expected_frame = [walk_keys[0]], [walk_keys[0], walk_keys[1]]
+        if sc.stack_kernels:
+            keep("wavefront_pt", compare(
+                "wavefront_pt", f"{label} k=2, lane order",
+                lambda sc=sc: wavefront_pt.trace(sc, lo, ld, ls, 2, DEPTH, perm=llanes),
+                lambda sc=sc: wavefront_pt.trace_plain(sc, lo, ld, ls, 2, DEPTH), n))
+            keep("whitted_wf", compare(
+                "whitted_wf", f"{label} level 0, lane order",
+                lambda sc=sc: whitted_wf.trace_level0(sc, lo, ld, perm=llanes),
+                lambda sc=sc: whitted_wf.trace_level0_plain(sc, lo, ld), n))
+            expected_pass, expected_frame = ["wavefront_pt", walk_keys[0]], ["whitted_wf"]
+        # 64x40 on the card (kernels) against the CPU (plain versions), at
+        # the scene's defaults; each drive must launch the kernels above
+        (img_gpu, st_gpu), counts = counted(
+            kernels, lambda sc=sc: pathtracer.render_pass(sc, lsmall, 1, DEPTH))
+        (w_out, w_counts) = counted(kernels, lambda sc=sc: whitted.render(sc, lsmall, DEPTH))
+        for key in expected_pass:
+            if counts[key] == 0:
+                raise AssertionError(f"{label}: render_pass never launched {key}")
+        for key in expected_frame:
+            if w_counts[key] == 0:
+                raise AssertionError(f"{label}: whitted.render never launched {key}")
+        img_cpu, st_cpu = pathtracer.render_pass(sc_cpu, lsmall, 1, DEPTH)
+        cmp = borderline.unexplained_pixels(
+            lambda oo, dd, ss, sc=sc_cpu: pathtracer.sample_radiance(sc, oo, dd, ss, DEPTH)[0],
+            pathtracer.camera_rays(lsmall, 1, "cpu"), img_gpu.cpu(), img_cpu)
+        w_cpu = whitted.render(sc_cpu, lsmall, DEPTH)["image"]
+        wcmp = borderline.unexplained_pixels(
+            lambda oo, dd, _, sc=sc_cpu: whitted.radiance(sc, oo, dd, DEPTH)[0],
+            (*cam_mod.full_frame_rays(lsmall, device="cpu"), None), w_out["image"].cpu(), w_cpu)
+        print(f"  64x40 cuda vs cpu: render_pass rays_traced {st_gpu['rays_traced']} vs "
+              f"{st_cpu['rays_traced']}, pixels beyond tolerance {cmp['bad'].numel()}, not "
+              f"fp-borderline {cmp['unexplained'].numel()}, launches "
+              f"{ {key: c for key, c in counts.items() if c} }; whitted pixels beyond tolerance "
+              f"{wcmp['bad'].numel()}, not fp-borderline {wcmp['unexplained'].numel()}, levels "
+              f"{w_out['levels']}, launches { {key: c for key, c in w_counts.items() if c} }")
+        if (st_gpu["rays_traced"] != st_cpu["rays_traced"] or cmp["unexplained"].numel()
+                or wcmp["unexplained"].numel() or not float(img_cpu.sum()) > 0):
+            raise AssertionError(f"{label}: the card's render differs from the CPU's")
+        del sc
+        torch.cuda.empty_cache()
 
     # --- 4. the path tracer's main path --------------------------------------
     # The configurations run in turns, pass by pass (0, 1, 6, 6, 1, 0, ...),
@@ -839,10 +956,19 @@ def main() -> int:
     for key, count in launches.items():
         if count == 0:
             raise AssertionError(f"{key} was never launched on a main path")
+    # launches per pass (the path tracer at its default wavefront_depths)
+    # and per frame (Whitted's default level route) on the main scene
+    default_pass = runs[pathtracer.WAVEFRONT_DEPTHS]["counts"]
+    default_frame = frames[True]["counts"]
+    main_launches = {key: dict(per_pass=default_pass.get(key, 0) / PASSES,
+                               per_frame=default_frame.get(key, 0) / FRAMES) for key in kernels}
+    redesigned = dict(closest_hit=5, occluded=5, closest_hit_links=5, occluded_links=5,
+                      wavefront_pt=6, whitted_wf=6)
     entries = [dict(name=key, source=src, replaces=f"cpu_ray_tracer_tpu/{tpu}",
-                    launches=launches[key], result=res[key])
+                    launches=launches[key], main=main_launches[key], result=res[key])
                for key, (src, tpu) in sources.items()]
-    entries += [dict(name=key, source=src, replaces=tpu, launches=probe_launches[key], result=r)
+    entries += [dict(name=key, source=src, replaces=tpu, launches=probe_launches[key],
+                     main=dict(per_pass=0, per_frame=0), result=r)
                 for key, src, tpu, r in probes]
     print(json.dumps({"kernels": [{
         "name": e["name"],
@@ -850,6 +976,8 @@ def main() -> int:
         "source": f"{PKG}/csrc/{e['source']}",
         "replaces": e["replaces"],
         "launches": e["launches"],
+        "main_launches": e["main"],
+        "redesigned": redesigned.get(e["name"]),
         "max_abs_err": e["result"]["max_abs_err"],
         "ms": e["result"]["ms"],
         "plain_ms": e["result"]["plain_ms"],

@@ -15,11 +15,16 @@ fields it needs from one or two 32-byte sectors:
   slots leaf after leaf in node order, unpadded;
 * `shade` float32 [S, 16]: n0 n1 n2 uv0 uv1 uv2, and in lane 15 the meta
   word `tri | obj << 20 | mat << 26` bit-cast, as the JAX package's
-  `pack_host` stores it;
+  `pack_host` stores it where the ids fit (`meta_in_shade`); where they do
+  not (2^20 triangles or more, an object id past 63, a material id past
+  31) lane 15 holds the material id as a float, as there, and
+  `slot_ids` int32 [S, 4] holds each slot's (tri, obj, mat, 0): the JAX
+  package's `slot_tri` joined with the per-triangle ids, one 16-byte load;
 * for a tree walked by hit/miss links (the grid and KD cell forests,
-  `accel/cell_tree.py`), `links` int32 [M, 16]: words 2*o and 2*o + 1 the
-  hit and miss link for ray-direction octant o (64 bytes per node; the
-  JAX package's `node_links` [8, 2, M]), and the forest's root list.
+  `accel/cell_tree.py`, and a BVH deeper than STACK_CAP), `links` int32
+  [M, 16]: words 2*o and 2*o + 1 the hit and miss link for ray-direction
+  octant o (64 bytes per node; the JAX package's `node_links` [8, 2, M]),
+  and the forest's root list.
 
 Those are the tables the plain versions read and the tests hold to the
 JAX package's.  The CUDA walks read three tables built from them, laid out
@@ -31,17 +36,28 @@ so that one step of a walk is one dependent round trip to one record
   child's box, 6-11 its right child's box, 12 and 13 the left and right
   child's ref, 14 a swap mask whose bit o is set where the near child for
   octant o is the right one (read off `nodes`' near words), 15 unused.  A
-  child ref is the child's node id for an interior child and
-  `~(count << LEAF_SHIFT | first)` (negative) for a leaf.  Leaf rows are
-  zero, except that a one-leaf tree's root row holds its box in words 0-5
-  and its ref in word 12; the walks then start at `record_root` = ~root;
+  child ref is the child's node id for an interior child and `~code`
+  (negative) for a leaf (below).  Leaf rows are zero, except that a one-leaf
+  tree's root row holds its box in words 0-5 and its ref in word 12; the
+  walks then start at `record_root` = ~root;
 * `link_records` int32 [8, M, 8] (32 bytes, two 16-byte loads from one
   sector), the link walk's, octant-major: record (o, n) holds words 0-5
   node n's box, 6 its hit link for octant o where n is interior and
-  `count << LEAF_SHIFT | first` (>= 2^LEAF_SHIFT > any node id) where n is
-  a leaf, whose hit link is its miss link, 7 its miss link for octant o;
+  `~code` (negative) where n is a leaf, whose hit link is its miss link,
+  7 its miss link for octant o;
 * `tris4` float32 [S, 12]: `tris` with v0, e1 and e2 each padded to four
-  floats, three 16-byte loads per triangle.
+  floats, three 16-byte loads per triangle; word 3 of a slot holds, bit
+  cast, the number of slots from it to its leaf's end.
+
+A leaf's code takes one of two forms, one for all the leaves of a table
+(`leaf_codes`): where every leaf has fewer than 2^(31 - LEAF_SHIFT)
+triangles and a first slot below 2^LEAF_SHIFT, `count << LEAF_SHIFT |
+first`, so the count comes with the record, as the walks were first
+built; otherwise the first slot alone, in a full int32 word, and the walk
+reads the count with the leaf's triangles (`tris4` word 3).  Either way a
+leaf's slots and count reach full int32 words, as the JAX package's
+`node_meta2`, and a step stays one round trip to one record; the kernels
+are compiled for both forms (`csrc/ptraverse.cuh`).
 
 Node numbering and the triangle order inside each leaf are the JAX
 package's, so the two packages' tables compare one to one.  Every
@@ -55,27 +71,34 @@ import dataclasses
 
 import numpy as np
 
+from cpu_ray_tracer_tpu_torch.accel import bvh_builder
+
 NODE_WORDS = 24
 N_BMIN = 0
 N_BMAX = 3
 N_FIRST = 6
 N_COUNT = 7
 N_NEARFAR = 8
-# per-thread stack capacity of the closest-hit walk (`csrc/closest_hit.cu`
-# STACK_CAP); the walk pushes at most one far child per level of the tree
-STACK_CAP = 64
-# leaf encoding of the walk records (`csrc/ptraverse.cuh` LEAF_SHIFT, the
-# wide pack's too): count << LEAF_SHIFT | first in 31 bits
+# per-thread stack capacity of the binary stack walk (`csrc/ptraverse.cuh`
+# STACK_CAP), the JAX package's (packet_bvh.py:114).  The walk pushes at
+# most one far child per level of the tree, so a tree of depth <= STACK_CAP
+# never fills it; a deeper BVH is threaded with links and walked by them
+# (make_tables), as the JAX package's gate sends it to its link walk
+# (packet_bvh.py:830-843, wavefront_pt.py:563-568)
+STACK_CAP = 128
+# a leaf code's first-slot bits where the table's leaves fit them
+# (`csrc/ptraverse.cuh` LEAF_SHIFT); the count takes the 9 bits above
 LEAF_SHIFT = 22
 RECORD_WORDS = 16  # node_records
 LINK_RECORD_WORDS = 8  # link_records
+_I32_MAX = (1 << 31) - 1
 
 
 @dataclasses.dataclass
 class PackedBVH:
     nodes: np.ndarray  # int32 [M, NODE_WORDS]
     tris: np.ndarray  # float32 [S, 9]
-    shade: np.ndarray  # float32 [S, 16], meta word bit-cast in lane 15
+    shade: np.ndarray  # float32 [S, 16], meta word (or material id) in lane 15
     root: int
     depth: int  # depth of the deepest tree, root level = 1
     links: np.ndarray | None  # int32 [M, 16] per-octant (hit, miss) links, or None
@@ -84,32 +107,43 @@ class PackedBVH:
     record_root: int  # root, or ~root for a one-leaf tree
     link_records: np.ndarray | None  # int32 [8, M, LINK_RECORD_WORDS], or None
     tris4: np.ndarray  # float32 [S, 12]
+    slot_ids: np.ndarray | None  # int32 [S, 4] (tri, obj, mat, 0), None where the meta word fits
+    stack: bool  # the binary stack walk serves the tree (a BVH of depth <= STACK_CAP)
+    cell_forest: bool  # a grid or KD cell forest (links given by `accel/cell_tree.py`)
+    leaf_codes: bool  # leaf codes carry the count (module docstring), else the first slot alone
 
 
-def leaf_codes(first: np.ndarray, count: np.ndarray) -> np.ndarray:
-    """`count << LEAF_SHIFT | first` (int32) per leaf; raises where a field
-    does not fit its bits."""
+def codes_fit(first: np.ndarray, count: np.ndarray) -> bool:
+    """Whether every leaf (`first`, `count`) fits `count << LEAF_SHIFT |
+    first` in 31 bits."""
     first, count = np.asarray(first, np.int64), np.asarray(count, np.int64)
-    if first.size and (first.min() < 0 or first.max() >= 1 << LEAF_SHIFT):
-        raise ValueError(f"a leaf's first slot does not fit {LEAF_SHIFT} bits")
-    if count.size and count.max() >= 1 << (31 - LEAF_SHIFT):
-        raise ValueError(f"a leaf's triangle count does not fit {31 - LEAF_SHIFT} bits")
-    return ((count << LEAF_SHIFT) | first).astype(np.int32)
+    return not first.size or bool(first.max() < (1 << LEAF_SHIFT)
+                                  and count.max() < (1 << (31 - LEAF_SHIFT)))
 
 
-def node_records(nodes: np.ndarray, root: int) -> tuple[np.ndarray, int]:
+def leaf_refs(first: np.ndarray, count: np.ndarray, codes: bool) -> np.ndarray:
+    """`~code` (int32, negative) per leaf, the walk records' leaf ref: the
+    code is `count << LEAF_SHIFT | first` with `codes`, else `first`."""
+    first, count = np.asarray(first, np.int64), np.asarray(count, np.int64)
+    if first.size and (first.min() < 0 or first.max() > _I32_MAX):
+        raise ValueError("a leaf's first slot does not fit an int32 word")
+    if codes and not codes_fit(first, count):
+        raise ValueError(f"a leaf does not fit count << {LEAF_SHIFT} | first")
+    code = (count << LEAF_SHIFT) | first if codes else first
+    return (~code).astype(np.int32)
+
+
+def node_records(nodes: np.ndarray, root: int, codes: bool) -> tuple[np.ndarray, int]:
     """The binary stack walk's table (module docstring) from `nodes`, and
     the walk's start: (int32 [M, RECORD_WORDS], record_root).  Raises
     unless every node without triangles has two distinct children."""
     m = nodes.shape[0]
-    if m >= 1 << LEAF_SHIFT:
-        raise ValueError(f"{m} nodes: node ids do not fit {LEAF_SHIFT} bits")
     count = nodes[:, N_COUNT]
     nearfar = nodes[:, N_NEARFAR:].reshape(m, 8, 2)
-    # refs of every node as a child: its id, or its leaf code complemented
+    # refs of every node as a child: its id, or ~code for a leaf
     ref = np.arange(m, dtype=np.int32)
     leaf = count > 0
-    ref[leaf] = ~leaf_codes(nodes[leaf, N_FIRST], count[leaf])
+    ref[leaf] = leaf_refs(nodes[leaf, N_FIRST], count[leaf], codes)
     rec = np.zeros((m, RECORD_WORDS), np.int32)
     interior = np.nonzero(~leaf)[0]
     # octant 0 (no negative component) takes the left child first
@@ -132,27 +166,39 @@ def node_records(nodes: np.ndarray, root: int) -> tuple[np.ndarray, int]:
     return rec, int(root)
 
 
-def link_records(nodes: np.ndarray, links: np.ndarray) -> np.ndarray:
+def link_records(nodes: np.ndarray, links: np.ndarray, codes: bool) -> np.ndarray:
     """The link walk's table (module docstring) from `nodes` and `links`
     [M, 16]: int32 [8, M, LINK_RECORD_WORDS]."""
     m = nodes.shape[0]
-    if m >= 1 << LEAF_SHIFT:
-        raise ValueError(f"{m} nodes: node ids do not fit {LEAF_SHIFT} bits")
-    count = nodes[:, N_COUNT]
-    leaf = count > 0
+    leaf = nodes[:, N_COUNT] > 0
     hit_miss = links.reshape(m, 8, 2).transpose(1, 0, 2)  # [8, M, 2]
     rec = np.zeros((8, m, LINK_RECORD_WORDS), np.int32)
     rec[:, :, 0:6] = nodes[None, :, N_BMIN : N_BMAX + 3]
     rec[:, :, 6] = hit_miss[:, :, 0]
-    rec[:, leaf, 6] = leaf_codes(nodes[leaf, N_FIRST], count[leaf])[None]
+    rec[:, leaf, 6] = leaf_refs(nodes[leaf, N_FIRST], nodes[leaf, N_COUNT], codes)[None]
     rec[:, :, 7] = hit_miss[:, :, 1]
     return rec
 
 
-def tris4(tris: np.ndarray) -> np.ndarray:
-    """`tris` [S, 9] with v0, e1, e2 each padded to four floats: [S, 12]."""
-    out = np.zeros((tris.shape[0], 3, 4), np.float32)
+def tris4(tris: np.ndarray, first: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """`tris` [S, 9] with v0, e1, e2 each padded to four floats: [S, 12];
+    word 3 of each slot of a leaf (`first`, `count` per leaf) holds, bit
+    cast, the slots from it to the leaf's end.  Raises where two leaves
+    share a slot with different ends."""
+    s = tris.shape[0]
+    out = np.zeros((s, 3, 4), np.float32)
     out[:, :, :3] = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+    first, count = np.asarray(first, np.int64), np.asarray(count, np.int64)
+    if count.size and (count.min() < 1 or (first + count).max() > s):
+        raise ValueError("a leaf's slots lie outside the triangle table")
+    # every leaf's slots, leaf after leaf, and the slots left from each
+    rank = np.arange(count.sum()) - np.repeat(np.cumsum(count) - count, count)
+    slots = np.repeat(first, count) + rank
+    left = np.repeat(count, count) - rank
+    words = out.view(np.int32)[:, 0, 3]
+    words[slots] = left
+    if not (words[slots] == left).all():
+        raise ValueError("two leaves share a triangle slot with different ends")
     return out.reshape(-1, 12)
 
 
@@ -183,29 +229,60 @@ def tree_depth(left: np.ndarray, right: np.ndarray, root: int) -> int:
     return depth
 
 
+def meta_fits(obj_id: np.ndarray, mat_id: np.ndarray) -> bool:
+    """Whether every triangle's ids fit the meta word: tri 20 bits, obj 6,
+    mat 5, so that the sign bit stays clear (the JAX package's
+    `ids_packable`, accel/pack.py:266-292 there)."""
+    return (obj_id.shape[0] < (1 << 20) and obj_id.max(initial=0) < (1 << 6)
+            and mat_id.max(initial=0) < (1 << 5))
+
+
 def meta_words(obj_id: np.ndarray, mat_id: np.ndarray) -> np.ndarray:
-    """Per-triangle `tri | obj << 20 | mat << 26` (int32).  mat rides bits
-    26-30 so that the sign bit stays clear: 20 / 6 / 5 bits."""
-    n = obj_id.shape[0]
-    if n >= (1 << 20) or obj_id.max(initial=0) >= (1 << 6) or mat_id.max(initial=0) >= (1 << 5):
-        raise ValueError("triangle, object or material id too wide for the meta word")
+    """Per-triangle `tri | obj << 20 | mat << 26` (int32); `meta_fits`
+    must hold."""
     return (
-        np.arange(n, dtype=np.int32)
+        np.arange(obj_id.shape[0], dtype=np.int32)
         | (obj_id.astype(np.int32) << 20)
         | (mat_id.astype(np.int32) << 26)
     )
 
 
+def slot_id_table(slot_tri: np.ndarray, obj_id: np.ndarray, mat_id: np.ndarray) -> np.ndarray:
+    """int32 [S, 4]: each slot's (tri, obj, mat, 0), the ids of a scene
+    whose meta word does not fit."""
+    out = np.zeros((slot_tri.shape[0], 4), np.int32)
+    out[:, 0] = slot_tri
+    out[:, 1] = obj_id[slot_tri]
+    out[:, 2] = mat_id[slot_tri]
+    return out
+
+
+def _children(nearfar: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(left, right, split axis) per node from its per-octant near/far
+    table: octant 0 takes the left child first, and the octant of the one
+    negative axis that swaps the pair names the split axis."""
+    left, right = nearfar[0, 0], nearfar[0, 1]
+    axis = np.zeros(left.shape[0], np.int32)
+    for a in (1, 2):
+        axis = np.where(nearfar[1 << a, 0] != left, a, axis)
+    return left, right, axis
+
+
 def make_tables(
     node_min, node_max, first, count, nearfar, tris, shade, root: int, depth: int,
-    links=None, roots=None,
+    links=None, roots=None, slot_ids=None,
 ) -> PackedBVH:
     """Assemble the node records.  `nearfar` int32 [8, 2, M]; `links`
-    (hit, miss) int32 [8, M] each, for a tree walked by links, which needs
-    no stack (so its depth is not bounded by STACK_CAP)."""
+    (hit, miss) int32 [8, M] each for a cell forest, which is walked by
+    them and needs no stack.  A BVH deeper than STACK_CAP is threaded here
+    (`bvh_builder.thread_links` over the children `nearfar` names) and
+    walked by links as well."""
     m = node_min.shape[0]
+    cell_forest = links is not None
+    roots = tuple(int(r) for r in (roots or [root]))
     if links is None and depth > STACK_CAP:
-        raise ValueError(f"tree depth {depth} exceeds the walk's stack capacity {STACK_CAP}")
+        left, right, axis = _children(np.asarray(nearfar))
+        links = bvh_builder.thread_links(left, right, np.asarray(count), axis, roots=roots)
     if links is not None:
         links = np.stack(links, axis=2).astype(np.int32).transpose(1, 0, 2).reshape(m, 16)
     nodes = np.zeros((m, NODE_WORDS), np.int32)
@@ -214,7 +291,9 @@ def make_tables(
     nodes[:, N_FIRST] = first
     nodes[:, N_COUNT] = count
     nodes[:, N_NEARFAR:] = np.transpose(nearfar, (2, 0, 1)).reshape(m, 16)
-    records, record_root = node_records(nodes, int(root))
+    leaf = nodes[:, N_COUNT] > 0
+    codes = codes_fit(nodes[leaf, N_FIRST], nodes[leaf, N_COUNT])
+    records, record_root = node_records(nodes, int(root), codes)
     return PackedBVH(
         nodes=nodes,
         tris=np.ascontiguousarray(tris, np.float32),
@@ -222,11 +301,15 @@ def make_tables(
         root=int(root),
         depth=int(depth),
         links=links,
-        roots=tuple(int(r) for r in (roots or [root])),
+        roots=roots,
         node_records=records,
         record_root=record_root,
-        link_records=None if links is None else link_records(nodes, links),
-        tris4=tris4(tris),
+        link_records=None if links is None else link_records(nodes, links, codes),
+        tris4=tris4(tris, nodes[leaf, N_FIRST], nodes[leaf, N_COUNT]),
+        slot_ids=slot_ids,
+        stack=links is None,
+        cell_forest=cell_forest,
+        leaf_codes=codes,
     )
 
 
@@ -248,10 +331,15 @@ def pack_bvh(
     v0 = tri_v[:, 0]
     tris = np.concatenate([v0, tri_v[:, 1] - v0, tri_v[:, 2] - v0], axis=1)[slot_tri]
     shade = np.ascontiguousarray(shade16, np.float32).copy()
-    shade.view(np.int32)[:, 15] = meta_words(obj_id, mat_id)
+    slot_ids = None
+    if meta_fits(obj_id, mat_id):
+        shade.view(np.int32)[:, 15] = meta_words(obj_id, mat_id)
+    else:
+        shade[:, 15] = mat_id.astype(np.float32)
+        slot_ids = slot_id_table(slot_tri, obj_id, mat_id)
     roots = [root] if roots is None else list(roots)
     depth = max(tree_depth(left, right, r) for r in roots)
     return make_tables(
         node_min, node_max, first, tri_count, nearfar_from_children(left, right, axis),
-        tris, shade[slot_tri], root, depth, links=links, roots=roots,
+        tris, shade[slot_tri], root, depth, links=links, roots=roots, slot_ids=slot_ids,
     )

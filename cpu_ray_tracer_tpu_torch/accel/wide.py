@@ -12,9 +12,11 @@ one.  The layout is one record per wide node, as a thread reads it:
   word 56 + o the order word of ray-direction octant o, whose bits
   3r .. 3r + 2 name the child slot of rank r, nearest first;
 * a child word is 0 for an empty slot, the wide node's index for an
-  interior child (never 0: node 0 is the root), and `first | count << 22`
-  for a leaf: its first slot and triangle count in the binary pack's
-  `tris` / `shade` tables (`accel/pack.py`), which the wide walk shares.
+  interior child (never 0: node 0 is the root), and `~code` (negative)
+  for a leaf: the binary pack's leaf code (`accel/pack.py` leaf_refs) of
+  its slots in the `tris` / `shade` tables, which the wide walk shares, so
+  a leaf takes as many slots and triangles as an int32 word counts (the
+  JAX package's child word holds a 22-bit row and a 9-bit row count).
 
 The JAX package regroups each wide node's leaf triangles into contiguous
 8-triangle rows for its union-row loop (wide_bvh.py:141-152); a thread
@@ -28,11 +30,12 @@ import dataclasses
 
 import numpy as np
 
+from cpu_ray_tracer_tpu_torch.accel import pack
+
 WIDE = 8  # children per wide node
 WIDE_WORDS = 64
 W_CHILD = 48
 W_ORDER = 56
-LEAF_SHIFT = 22  # leaf child word: first slot | count << LEAF_SHIFT
 # per-thread stack capacity of the wide walk (`csrc/ptraverse.cuh`
 # WIDE_STACK_CAP): a stack word (node << 8 | pending children) per level of
 # the wide tree, plus the forest's extra roots
@@ -96,15 +99,15 @@ def octant_order(centers: np.ndarray, octant: int) -> np.ndarray:
     return np.argsort(centers @ sign, kind="stable")
 
 
-def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, count) -> PackedWide:
+def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, count,
+              codes: bool) -> PackedWide:
     """Collapse and pack a binary host BVH (the fused TLAS forest has one
     root) whose leaves hold the binary pack's slots [first, first + count)
-    (per binary node, `accel/pack.py` N_FIRST / N_COUNT)."""
+    (per binary node, `accel/pack.py` N_FIRST / N_COUNT), in the binary
+    pack's leaf code form `codes` (`PackedBVH.leaf_codes`)."""
     wide, depth = collapse_wide(left, right, tri_count, node_min, node_max, root)
     w = len(wide)
     roots = (0,)
-    if w >= (1 << LEAF_SHIFT):  # an interior child word must read as count 0
-        raise ValueError(f"{w} wide nodes do not fit a {LEAF_SHIFT}-bit child word")
     if depth + len(roots) - 1 > WIDE_STACK_CAP:
         raise ValueError(f"wide depth {depth} exceeds the walk's stack capacity {WIDE_STACK_CAP}")
     nodes = np.zeros((w, WIDE_WORDS), np.int32)
@@ -117,10 +120,10 @@ def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, coun
             if wide_child >= 0:
                 nodes[wi, W_CHILD + slot] = wide_child
             else:
-                f, c = int(first[bin_id]), int(count[bin_id])
-                if f >= (1 << LEAF_SHIFT) or not 0 < c < (1 << (31 - LEAF_SHIFT)):
-                    raise ValueError(f"leaf of {c} triangles at slot {f} does not fit a child word")
-                nodes[wi, W_CHILD + slot] = f | (c << LEAF_SHIFT)
+                if count[bin_id] < 1:
+                    raise ValueError(f"leaf {bin_id} holds no triangle")
+                nodes[wi, W_CHILD + slot] = pack.leaf_refs(
+                    first[bin_id : bin_id + 1], count[bin_id : bin_id + 1], codes)[0]
         centers = (node_min[ids] + node_max[ids]) * 0.5
         for o in range(8):
             # ranks past the node's children name slot 0 again, which is

@@ -2,11 +2,16 @@
 `cpu_ray_tracer_tpu/core/camera.py:34-130` (template/camera.h:11-79): the
 screen plane at `pos + 2*ahead`, half-height 1, half-width = aspect; a ray
 through pixel coordinates (x, y) bilerps topLeft/topRight/bottomLeft by
-(x/W, y/H)."""
+(x/W, y/H).
+
+`lane_order` gives the order in which the fused kernels take a frame's
+camera rays: a warp of 32 lanes takes an 8x4 tile of pixels rather than a
+1x32 strip of a scanline, so that its rays walk the scene together."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -92,3 +97,26 @@ def full_frame_rays(cam: Camera, jitter_x=None, jitter_y=None, device=device_mod
     if jitter_y is not None:
         ys = ys + jitter_y
     return primary_rays(cam, xs, ys)
+
+
+TILE_W, TILE_H = 8, 4  # pixels of a warp's tile in `lane_order`
+
+
+@functools.lru_cache(maxsize=16)
+def _lane_order(width: int, height: int, device: torch.device) -> torch.Tensor:
+    ys, xs = np.divmod(np.arange(width * height), width)
+    tiles_x = -(-width // TILE_W)
+    key = ((ys // TILE_H) * tiles_x + xs // TILE_W) * (TILE_W * TILE_H) \
+        + (ys % TILE_H) * TILE_W + xs % TILE_W
+    return torch.from_numpy(np.argsort(key, kind="stable").astype(np.int32)).to(device)
+
+
+def lane_order(cam: Camera, device=device_mod.DEFAULT) -> torch.Tensor:
+    """int32 [W*H], made once per camera size and device: entry j is the
+    scanline index of the pixel whose ray lane j of a fused kernel takes
+    (`ops/wavefront_pt.trace`, `ops/whitted_wf.trace_level0`).  The frame
+    is cut into 8x4 tiles in scanline order of tiles, each tile's pixels in
+    scanline order, so a warp of 32 lanes takes one tile; tiles at the
+    right and bottom edges are narrower or shorter and share a warp with
+    the next."""
+    return _lane_order(cam.width, cam.height, device_mod.resolve(device))

@@ -43,11 +43,12 @@ namespace {
 
 constexpr int THREADS = 128;
 
+template <bool CODES>
 __global__ void __launch_bounds__(THREADS)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
                    const int4* __restrict__ records, const float4* __restrict__ tris4,
-                   const float* __restrict__ shade, int root,
+                   const float* __restrict__ shade, const int4* __restrict__ slot_ids, int root,
                    float* __restrict__ t_out, float* __restrict__ u_out,
                    float* __restrict__ v_out, int* __restrict__ slot_out,
                    int* __restrict__ tri_out, int* __restrict__ obj_out,
@@ -56,8 +57,8 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk<false>(records, tris4, root, crt::load_ray(o, d, i), h);
-  const crt::Ids ids = crt::decode(shade, h.slot);
+  if (mask[i]) crt::walk<false, CODES>(records, tris4, root, crt::load_ray(o, d, i), h);
+  const crt::Ids ids = crt::decode(shade, slot_ids, h.slot);
   t_out[i] = h.t;
   u_out[i] = h.u;
   v_out[i] = h.v;
@@ -69,6 +70,7 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   test_out[i] = h.tested;
 }
 
+template <bool CODES>
 __global__ void __launch_bounds__(THREADS)
 occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
@@ -77,7 +79,7 @@ occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk<true>(records, tris4, root, crt::load_ray(o, d, i), h);
+  if (mask[i]) crt::walk<true, CODES>(records, tris4, root, crt::load_ray(o, d, i), h);
   occ_out[i] = h.slot >= 0 ? 1 : 0;
 }
 
@@ -88,26 +90,30 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError() of
 // the launch (0 on success).  All pointers are device pointers, the tables
 // 16-byte aligned; the caller allocates every output.  `root` is the
-// scene's `record_root` (accel/pack.py).
+// scene's `record_root`; `slot_ids` is null unless the scene's ids do not
+// fit the meta word; `codes` is the scene's leaf code form (accel/pack.py).
 int crt_closest_hit(const float* o, const float* d, const float* t0, const uint8_t* mask, int n,
-                    const int4* records, const float4* tris4, const float* shade, int root,
-                    float* t_out, float* u_out, float* v_out, int* slot_out, int* tri_out,
-                    int* obj_out, int* mat_out, int* trav_out, int* test_out, void* stream) {
+                    const int4* records, const float4* tris4, const float* shade,
+                    const int4* slot_ids, int root, int codes, float* t_out, float* u_out,
+                    float* v_out, int* slot_out, int* tri_out, int* obj_out, int* mat_out,
+                    int* trav_out, int* test_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    closest_hit_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, records, tris4, shade, root, t_out, u_out, v_out, slot_out, tri_out,
-        obj_out, mat_out, trav_out, test_out);
+    (codes ? closest_hit_kernel<true> : closest_hit_kernel<false>)<<<
+        blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, t0, mask, n, records, tris4, shade, slot_ids, root, t_out, u_out, v_out, slot_out,
+        tri_out, obj_out, mat_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int crt_occluded(const float* o, const float* d, const float* t0, const uint8_t* mask, int n,
-                 const int4* records, const float4* tris4, int root, uint8_t* occ_out,
-                 void* stream) {
+                 const int4* records, const float4* tris4, int root, int codes,
+                 uint8_t* occ_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    occluded_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    (codes ? occluded_kernel<true> : occluded_kernel<false>)<<<
+        blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, t0, mask, n, records, tris4, root, occ_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -36,12 +36,14 @@ namespace {
 
 constexpr int THREADS = 128;
 
+template <bool CODES>
 __global__ void __launch_bounds__(THREADS)
 closest_hit_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
                          const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
                          const int4* __restrict__ link_records, int m,
                          const float4* __restrict__ tris4, const float* __restrict__ shade,
-                         int root, float* __restrict__ t_out, float* __restrict__ u_out,
+                         const int4* __restrict__ slot_ids, int root,
+                         float* __restrict__ t_out, float* __restrict__ u_out,
                          float* __restrict__ v_out, int* __restrict__ slot_out,
                          int* __restrict__ tri_out, int* __restrict__ obj_out,
                          int* __restrict__ mat_out, int* __restrict__ trav_out,
@@ -50,9 +52,9 @@ closest_hit_links_kernel(const float* __restrict__ o, const float* __restrict__ 
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
   if (mask[i]) {
-    crt::walk_links<false>(link_records, m, tris4, root, crt::load_ray(o, d, i), h);
+    crt::walk_links<false, CODES>(link_records, m, tris4, root, crt::load_ray(o, d, i), h);
   }
-  const crt::Ids ids = crt::decode(shade, h.slot);
+  const crt::Ids ids = crt::decode(shade, slot_ids, h.slot);
   t_out[i] = h.t;
   u_out[i] = h.u;
   v_out[i] = h.v;
@@ -64,6 +66,7 @@ closest_hit_links_kernel(const float* __restrict__ o, const float* __restrict__ 
   test_out[i] = h.tested;
 }
 
+template <bool CODES>
 __global__ void __launch_bounds__(THREADS)
 occluded_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
@@ -73,7 +76,7 @@ occluded_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
   if (mask[i]) {
-    crt::walk_links<true>(link_records, m, tris4, root, crt::load_ray(o, d, i), h);
+    crt::walk_links<true, CODES>(link_records, m, tris4, root, crt::load_ray(o, d, i), h);
   }
   occ_out[i] = h.slot >= 0 ? 1 : 0;
 }
@@ -83,27 +86,30 @@ occluded_links_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" {
 
 // As the entry points of csrc/closest_hit.cu, with the `m` nodes' link
-// records (16-byte aligned) and the forest's first root.
+// records (16-byte aligned), the forest's first root and the leaf code form.
 int crt_closest_hit_links(const float* o, const float* d, const float* t0, const uint8_t* mask,
                           int n, const int4* link_records, int m, const float4* tris4,
-                          const float* shade, int root, float* t_out, float* u_out, float* v_out,
-                          int* slot_out, int* tri_out, int* obj_out, int* mat_out, int* trav_out,
-                          int* test_out, void* stream) {
+                          const float* shade, const int4* slot_ids, int root, int codes,
+                          float* t_out, float* u_out, float* v_out, int* slot_out, int* tri_out,
+                          int* obj_out, int* mat_out, int* trav_out, int* test_out,
+                          void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    closest_hit_links_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, link_records, m, tris4, shade, root, t_out, u_out, v_out, slot_out,
-        tri_out, obj_out, mat_out, trav_out, test_out);
+    (codes ? closest_hit_links_kernel<true> : closest_hit_links_kernel<false>)<<<
+        blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, t0, mask, n, link_records, m, tris4, shade, slot_ids, root, t_out, u_out, v_out,
+        slot_out, tri_out, obj_out, mat_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int crt_occluded_links(const float* o, const float* d, const float* t0, const uint8_t* mask,
                        int n, const int4* link_records, int m, const float4* tris4, int root,
-                       uint8_t* occ_out, void* stream) {
+                       int codes, uint8_t* occ_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    occluded_links_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    (codes ? occluded_links_kernel<true> : occluded_links_kernel<false>)<<<
+        blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, t0, mask, n, link_records, m, tris4, root, occ_out);
   }
   return static_cast<int>(cudaGetLastError());

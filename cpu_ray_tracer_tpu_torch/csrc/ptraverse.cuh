@@ -45,16 +45,30 @@
 // (accel/pack.py) give each step one dependent round trip to one record,
 // read with 16-byte vector loads through the read-only path:
 //   * `walk` reads `node_records`: one 64-byte record per interior node
-//     holds both children's boxes, their refs (node id, or ~leaf code) and
-//     the per-octant near/far swap mask, so a step is four independent
-//     16-byte loads of the node in hand (the 96-byte `nodes` table took
-//     two round trips: the node's near/far pair, then both children);
+//     holds both children's boxes, their refs (node id, or a leaf's ~code)
+//     and the per-octant near/far swap mask, so a step is four independent
+//     16-byte loads of the node in hand (the 96-byte `nodes` table took two
+//     round trips: the node's near/far pair, then both children);
 //   * `walk_links` reads `link_records`: per octant and node one 32-byte
-//     record, one sector, holds the box, the hit link or leaf code and the
-//     miss link, so the next node comes out of the record just visited and
-//     a ray stays in its octant's slice (184 KB on the main path's grid);
+//     record, one sector, holds the box, the hit link or ~code and the miss
+//     link, so the next node comes out of the record just visited and a ray
+//     stays in its octant's slice (184 KB on the main path's grid);
 //   * the leaf tests read `tris4`: a triangle is three 16-byte loads of
 //     v0, e1, e2 padded to four floats.
+// A leaf's code takes one of two forms, the same for every leaf of a
+// scene (accel/pack.py `leaf_codes`), and every walk is compiled for both
+// (the CODES template argument):
+//   * CODES: count << LEAF_SHIFT | first, where every leaf fits 9 and 22
+//     bits, as in all scenes up to millions of triangles: the count comes
+//     with the record, and the leaf loop is a counted one that the compiler
+//     pipelines;
+//   * otherwise the first slot alone, in a full int32 word, and v0's fourth
+//     word in `tris4` counts the slots from it to its leaf's end, so a leaf
+//     of any size at any slot (the JAX package's `node_meta2` takes full
+//     int32 words) costs no load of its own: each triangle's load says
+//     whether another follows.  Reading the count there on every scene
+//     cost the main scene's walks 2-26% (PERF.md), so the common form keeps
+//     the count in the code.
 // The walks' order, and so t/u/v, the slots and the counters, are the
 // plain versions' bit for bit; only the loads changed.
 
@@ -64,7 +78,11 @@
 
 namespace crt {
 
-constexpr int STACK_CAP = 64;  // accel/pack.py STACK_CAP (asserted at pack time)
+// accel/pack.py STACK_CAP: the pack walks a deeper BVH by links, so a walk
+// never pushes more than depth - 2 <= STACK_CAP - 2 far children
+constexpr int STACK_CAP = 128;
+constexpr int LEAF_SHIFT = 22;  // accel/pack.py LEAF_SHIFT: a leaf code's count field
+constexpr int FIRST_MASK = (1 << LEAF_SHIFT) - 1;
 constexpr int RECORD_INT4 = 4;  // accel/pack.py node_records: 16 words
 constexpr int LINK_RECORD_INT4 = 2;  // accel/pack.py link_records: 8 words
 constexpr int TRI_FLOAT4 = 3;  // accel/pack.py tris4: 12 floats
@@ -72,8 +90,6 @@ constexpr int WIDE = 8;  // accel/wide.py: children per wide node
 constexpr int WIDE_WORDS = 64;
 constexpr int W_CHILD = 48;
 constexpr int W_ORDER = 56;
-constexpr int LEAF_SHIFT = 22;  // leaf code count << LEAF_SHIFT | first (accel/pack.py)
-constexpr int FIRST_MASK = (1 << LEAF_SHIFT) - 1;
 constexpr int WIDE_STACK_CAP = 32;  // accel/wide.py WIDE_STACK_CAP (asserted at pack time)
 constexpr float TRI_EPS = 1e-4f;
 constexpr float RAY_FAR = 1e34f;
@@ -134,10 +150,12 @@ struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
-// Slot `slot` of `tris4` (accel/pack.py): three 16-byte loads.
-__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris4, int slot) {
+// Slot `slot` of `tris4` (accel/pack.py): three 16-byte loads; `left` is
+// word 3, the slots from this one to the end of its leaf.
+__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris4, int slot, int& left) {
   const float4* p = tris4 + (size_t)slot * TRI_FLOAT4;
   const float4 v0 = __ldg(p), e1 = __ldg(p + 1), e2 = __ldg(p + 2);
+  left = __float_as_int(v0.w);
   return Tri{v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
 }
 
@@ -166,11 +184,12 @@ __device__ __forceinline__ bool moller_trumbore(const Tri& p, const Ray& r, floa
 // first-tested of equal hits.  With ANY_HIT it returns true at the first
 // accepted triangle.
 template <bool ANY_HIT>
-__device__ __forceinline__ bool leaf_tests(const float4* __restrict__ tris4, int first,
-                                           int count, const Ray& r, Hit& h) {
+__device__ __forceinline__ bool leaf_tests(const float4* __restrict__ tris4, int first, int count,
+                                           const Ray& r, Hit& h) {
   for (int k = 0; k < count; ++k) {
+    int left;
     float uu, vv, tt;
-    if (moller_trumbore(load_tri(tris4, first + k), r, h.t, uu, vv, tt)) {
+    if (moller_trumbore(load_tri(tris4, first + k, left), r, h.t, uu, vv, tt)) {
       h.t = tt;
       h.u = uu;
       h.v = vv;
@@ -185,17 +204,43 @@ __device__ __forceinline__ bool leaf_tests(const float4* __restrict__ tris4, int
   return false;
 }
 
-// The leaf tests of a leaf code `count << LEAF_SHIFT | first`.
+// The same over a leaf known by its first slot alone: each slot's `left`
+// word says whether another follows.
 template <bool ANY_HIT>
+__device__ __forceinline__ bool leaf_tests_open(const float4* __restrict__ tris4, int first,
+                                                const Ray& r, Hit& h) {
+  for (int slot = first;; ++slot) {
+    int left;
+    float uu, vv, tt;
+    const Tri tri = load_tri(tris4, slot, left);
+    ++h.tested;
+    if (moller_trumbore(tri, r, h.t, uu, vv, tt)) {
+      h.t = tt;
+      h.u = uu;
+      h.v = vv;
+      h.slot = slot;
+      if (ANY_HIT) return true;
+    }
+    if (left <= 1) return false;
+  }
+}
+
+// The leaf tests of a leaf's code (module comment): count << LEAF_SHIFT |
+// first with CODES, else the first slot alone.
+template <bool ANY_HIT, bool CODES>
 __device__ __forceinline__ bool leaf_code_tests(const float4* __restrict__ tris4, int code,
                                                 const Ray& r, Hit& h) {
-  return leaf_tests<ANY_HIT>(tris4, code & FIRST_MASK, code >> LEAF_SHIFT, r, h);
+  if constexpr (CODES) {
+    return leaf_tests<ANY_HIT>(tris4, code & FIRST_MASK, code >> LEAF_SHIFT, r, h);
+  } else {
+    return leaf_tests_open<ANY_HIT>(tris4, code, r, h);
+  }
 }
 
 // The walk from `root` over `node_records` (accel/pack.py), updating `h`
 // (which starts as no_hit(t0)).  `root` is the root's node id, or ~id for
 // a one-leaf tree, whose row holds its box and leaf ref.
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool CODES>
 __device__ __forceinline__ void walk(const int4* __restrict__ records,
                                      const float4* __restrict__ tris4, int root, const Ray& r,
                                      Hit& h) {
@@ -205,7 +250,7 @@ __device__ __forceinline__ void walk(const int4* __restrict__ records,
     const int4* rec = records + (size_t)(~root) * RECORD_INT4;
     const int4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q3 = __ldg(rec + 3);
     if (slab_box(f32(q0.x), f32(q0.y), f32(q0.z), f32(q0.w), f32(q1.x), f32(q1.y), r, h.t)) {
-      leaf_code_tests<ANY_HIT>(tris4, ~q3.x, r, h);
+      leaf_code_tests<ANY_HIT, CODES>(tris4, ~q3.x, r, h);
     }
     return;
   }
@@ -225,12 +270,18 @@ __device__ __forceinline__ void walk(const int4* __restrict__ records,
     const bool swap = (q3.z >> oct) & 1;
     const int near = swap ? q3.y : q3.x, far = swap ? q3.x : q3.y;
     const bool hit_n = swap ? hit_r : hit_l, hit_f = swap ? hit_l : hit_r;
-    // a negative ref is a leaf: ~(count << LEAF_SHIFT | first)
-    if (hit_n && near < 0 && leaf_code_tests<ANY_HIT>(tris4, ~near, r, h)) return;
-    if (hit_f && far < 0 && leaf_code_tests<ANY_HIT>(tris4, ~far, r, h)) return;
+    // a negative ref is a leaf: ~code
+    if (hit_n && near < 0 && leaf_code_tests<ANY_HIT, CODES>(tris4, ~near, r, h)) return;
+    if (hit_f && far < 0 && leaf_code_tests<ANY_HIT, CODES>(tris4, ~far, r, h)) return;
     const bool go_n = hit_n && near >= 0;
     const bool go_f = hit_f && far >= 0;
-    if (go_n && go_f && sp < STACK_CAP) stack[sp++] = far;
+    if (go_n && go_f) {
+      // the pack guarantees room (STACK_CAP above); a debug build checks it
+#if defined(CRT_DEBUG) || defined(__CUDACC_DEBUG__)
+      if (sp >= STACK_CAP) __trap();
+#endif
+      stack[sp++] = far;
+    }
     if (go_n) {
       cur = near;
     } else if (go_f) {
@@ -250,7 +301,7 @@ __device__ __forceinline__ void walk(const int4* __restrict__ records,
 // forest's roots are chained through the miss links, so the walk starts at
 // the first root and needs no stack.  `traversed` counts every node
 // visited.  `m` is the node count: octant o's records start at o * m.
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool CODES>
 __device__ __forceinline__ void walk_links(const int4* __restrict__ link_records, int m,
                                            const float4* __restrict__ tris4, int root,
                                            const Ray& r, Hit& h) {
@@ -261,10 +312,10 @@ __device__ __forceinline__ void walk_links(const int4* __restrict__ link_records
     const int4* rec = orecs + (size_t)cur * LINK_RECORD_INT4;
     const int4 a = __ldg(rec), b = __ldg(rec + 1);
     const bool hit = slab_box(f32(a.x), f32(a.y), f32(a.z), f32(a.w), f32(b.x), f32(b.y), r, h.t);
-    // word 6: the hit link of an interior node (a node id < 2^LEAF_SHIFT),
-    // or a leaf's code (count >= 1, so >= 2^LEAF_SHIFT)
-    const bool leaf = b.z > FIRST_MASK;
-    if (hit && leaf && leaf_code_tests<ANY_HIT>(tris4, b.z, r, h)) return;
+    // word 6: the hit link of an interior node (a node id), or a leaf's
+    // ~code (negative)
+    const bool leaf = b.z < 0;
+    if (hit && leaf && leaf_code_tests<ANY_HIT, CODES>(tris4, ~b.z, r, h)) return;
     cur = hit && !leaf ? b.z : b.w;
   }
 }
@@ -292,7 +343,7 @@ __device__ __forceinline__ int nearest_child(int bits, int ow) {
 // itself).  So the stack holds at most one word per level of the wide tree
 // and one per extra root, which accel/wide.py checks against
 // WIDE_STACK_CAP at pack time.  `traversed` counts wide-node steps.
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool CODES>
 __device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
                                           const int* __restrict__ roots, int n_roots,
                                           const float4* __restrict__ tris4, const Ray& r,
@@ -313,10 +364,10 @@ __device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
     int ibits = 0;
     for (int k = 0; k < WIDE; ++k) {
       if (!((hitbits >> k) & 1)) continue;
+      // a child word: 0 empty, > 0 an interior child, ~code a leaf
       const int c = __ldg(rec + W_CHILD + k);
-      const int count = c >> LEAF_SHIFT;
-      if (count > 0) {
-        if (leaf_tests<ANY_HIT>(tris4, c & FIRST_MASK, count, r, h)) return;
+      if (c < 0) {
+        if (leaf_code_tests<ANY_HIT, CODES>(tris4, ~c, r, h)) return;
       } else if (c > 0) {
         ibits |= 1 << k;
       }
@@ -349,14 +400,23 @@ __device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
 }
 
 // Hit ids from the meta word in lane 15 of the winning slot's shading
-// record (packet_bvh.py:898-908): tri | obj << 20 | mat << 26.
+// record (packet_bvh.py:898-908): tri | obj << 20 | mat << 26; or, where a
+// scene's ids do not fit it, from the slot's row (tri, obj, mat, 0) of
+// `slot_ids` (accel/pack.py; packet_bvh.py:914-922), which is null
+// otherwise: one 16-byte load either way.
 struct Ids {
   int tri, obj, mat;
 };
 
-__device__ __forceinline__ Ids decode(const float* __restrict__ shade, int slot) {
+__device__ __forceinline__ Ids decode(const float* __restrict__ shade,
+                                      const int4* __restrict__ slot_ids, int slot) {
   Ids ids{-1, -1, -1};
-  if (slot >= 0) {
+  if (slot >= 0 && slot_ids != nullptr) {
+    const int4 q = __ldg(slot_ids + slot);
+    ids.tri = q.x;
+    ids.obj = q.y;
+    ids.mat = q.z;
+  } else if (slot >= 0) {
     const int meta = __float_as_int(__ldg(shade + (size_t)slot * 16 + 15));
     if (meta >= 0) {
       ids.tri = meta & 0xFFFFF;

@@ -15,6 +15,14 @@
 // Scene scalars and the material table arrive as one float32 array
 // (`ops/wavefront_pt.kernel_params`, integer fields bit-cast) that each
 // block copies to shared memory.
+//
+// Both kernels walk the binary stack tables, or on a BVH deeper than the
+// stack walk's STACK_CAP the link tables (`SceneWalk`, chosen at compile
+// time by the LINKS template argument, beside the leaf code form CODES of
+// csrc/ptraverse.cuh): the JAX kernels' branch between
+// `traverse_stack` and `traverse_links`
+// (cpu_ray_tracer_tpu/ops/pallas/ptraverse.py:35 and :243, chosen at :316
+// on the gate of wavefront_pt.py:563-568).
 
 #pragma once
 
@@ -78,6 +86,24 @@ __device__ __forceinline__ bool quad_hit(const float* s, float ox, float oy, flo
   return t < t_max && t > 0.0f && ix > -size && ix < size && iz > -size && iz < size;
 }
 
+// The walk tables of a fused kernel: `node_records` and `record_root` for
+// the stack walk, or `link_records`, the node count and the first root
+// for the link walk (accel/pack.py).
+struct SceneWalk {
+  const int4* records;
+  int m, root;
+};
+
+template <bool LINKS, bool CODES, bool ANY_HIT>
+__device__ __forceinline__ void walk_scene(const SceneWalk& w, const float4* __restrict__ tris4,
+                                           const Ray& r, Hit& h) {
+  if constexpr (LINKS) {
+    walk_links<ANY_HIT, CODES>(w.records, w.m, tris4, w.root, r, h);
+  } else {
+    walk<ANY_HIT, CODES>(w.records, tris4, w.root, r, h);
+  }
+}
+
 // What the nearest-hit prologue leaves for the shading.
 struct Surface {
   float t, px, py, pz, nx, ny, nz, u, v;
@@ -88,11 +114,11 @@ struct Surface {
 // FindNearest (file_scene.cpp:170-175) and GetHitInfo
 // (tlas_file_scene.cpp:220-260): light quad, floor, then the BVH walk if
 // `walk_bvh`; normal, uv and material id; back-face flip.
-__device__ __forceinline__ Surface nearest_surface(const float* s, int n_mats,
-                                                   const int4* __restrict__ records,
+template <bool LINKS, bool CODES>
+__device__ __forceinline__ Surface nearest_surface(const float* s, int n_mats, const SceneWalk& wk,
                                                    const float4* __restrict__ tris4,
-                                                   const float* __restrict__ shade, int root,
-                                                   const Ray& r, bool walk_bvh) {
+                                                   const float* __restrict__ shade, const Ray& r,
+                                                   bool walk_bvh) {
   float t = RAY_FAR, t_q;
   const bool hit_q = quad_hit(s, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t, t_q);
   if (hit_q) t = t_q;
@@ -101,7 +127,7 @@ __device__ __forceinline__ Surface nearest_surface(const float* s, int n_mats,
   const bool hit_f = t_f < t && t_f > 0.0f;
   if (hit_f) t = t_f;
   Hit h = no_hit(t);
-  if (walk_bvh) walk<false>(records, tris4, root, r, h);
+  if (walk_bvh) walk_scene<LINKS, CODES, false>(wk, tris4, r, h);
   Surface o;
   o.t = h.t;
   o.slot = h.slot;
@@ -121,7 +147,7 @@ __device__ __forceinline__ Surface nearest_surface(const float* s, int n_mats,
     o.nz = a.nz * rn;
     o.u = a.tu;
     o.v = a.tv;
-    o.mat = decode(shade, h.slot).mat;
+    o.mat = decode(shade, nullptr, h.slot).mat;
   } else if (o.obj == 0) {
     o.nx = s[P_LIGHT_N];
     o.ny = s[P_LIGHT_N + 1];

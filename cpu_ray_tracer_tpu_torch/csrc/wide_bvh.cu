@@ -28,12 +28,14 @@ namespace {
 
 constexpr int THREADS = 128;
 
+template <bool CODES>
 __global__ void __launch_bounds__(THREADS)
 closest_hit_wide_kernel(const float* __restrict__ o, const float* __restrict__ d,
                         const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
                         const int* __restrict__ wnodes, const int* __restrict__ roots,
                         int n_roots, const float4* __restrict__ tris4,
-                        const float* __restrict__ shade, float* __restrict__ t_out,
+                        const float* __restrict__ shade,
+                        const int4* __restrict__ slot_ids, float* __restrict__ t_out,
                         float* __restrict__ u_out, float* __restrict__ v_out,
                         int* __restrict__ slot_out, int* __restrict__ tri_out,
                         int* __restrict__ obj_out, int* __restrict__ mat_out,
@@ -41,8 +43,10 @@ closest_hit_wide_kernel(const float* __restrict__ o, const float* __restrict__ d
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk_wide<false>(wnodes, roots, n_roots, tris4, crt::load_ray(o, d, i), h);
-  const crt::Ids ids = crt::decode(shade, h.slot);
+  if (mask[i]) {
+    crt::walk_wide<false, CODES>(wnodes, roots, n_roots, tris4, crt::load_ray(o, d, i), h);
+  }
+  const crt::Ids ids = crt::decode(shade, slot_ids, h.slot);
   t_out[i] = h.t;
   u_out[i] = h.u;
   v_out[i] = h.v;
@@ -54,6 +58,7 @@ closest_hit_wide_kernel(const float* __restrict__ o, const float* __restrict__ d
   test_out[i] = h.tested;
 }
 
+template <bool CODES>
 __global__ void __launch_bounds__(THREADS)
 occluded_wide_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t0, const uint8_t* __restrict__ mask, int n,
@@ -62,7 +67,9 @@ occluded_wide_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   crt::Hit h = crt::no_hit(__ldg(t0 + i));
-  if (mask[i]) crt::walk_wide<true>(wnodes, roots, n_roots, tris4, crt::load_ray(o, d, i), h);
+  if (mask[i]) {
+    crt::walk_wide<true, CODES>(wnodes, roots, n_roots, tris4, crt::load_ray(o, d, i), h);
+  }
   occ_out[i] = h.slot >= 0 ? 1 : 0;
 }
 
@@ -71,27 +78,30 @@ occluded_wide_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" {
 
 // As the entry points of csrc/closest_hit.cu, with the wide tables: the
-// wide node records and the `n_roots` wide roots.
+// wide node records and the `n_roots` wide roots; `codes` the leaf code form.
 int crt_closest_hit_wide(const float* o, const float* d, const float* t0, const uint8_t* mask,
                          int n, const int* wnodes, const int* roots, int n_roots,
-                         const float4* tris4, const float* shade, float* t_out, float* u_out,
-                         float* v_out, int* slot_out, int* tri_out, int* obj_out, int* mat_out,
-                         int* trav_out, int* test_out, void* stream) {
+                         const float4* tris4, const float* shade, const int4* slot_ids,
+                         int codes, float* t_out, float* u_out, float* v_out, int* slot_out,
+                         int* tri_out, int* obj_out, int* mat_out, int* trav_out, int* test_out,
+                         void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    closest_hit_wide_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, t0, mask, n, wnodes, roots, n_roots, tris4, shade, t_out, u_out, v_out, slot_out,
-        tri_out, obj_out, mat_out, trav_out, test_out);
+    (codes ? closest_hit_wide_kernel<true> : closest_hit_wide_kernel<false>)<<<
+        blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, t0, mask, n, wnodes, roots, n_roots, tris4, shade, slot_ids, t_out, u_out, v_out,
+        slot_out, tri_out, obj_out, mat_out, trav_out, test_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int crt_occluded_wide(const float* o, const float* d, const float* t0, const uint8_t* mask,
                       int n, const int* wnodes, const int* roots, int n_roots, const float4* tris4,
-                      uint8_t* occ_out, void* stream) {
+                      int codes, uint8_t* occ_out, void* stream) {
   if (n > 0) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    occluded_wide_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    (codes ? occluded_wide_kernel<true> : occluded_wide_kernel<false>)<<<
+        blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, t0, mask, n, wnodes, roots, n_roots, tris4, occ_out);
   }
   return static_cast<int>(cudaGetLastError());

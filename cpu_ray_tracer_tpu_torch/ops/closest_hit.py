@@ -11,7 +11,9 @@ arguments and return the same dict:
     t, u, v      float32 [R]  hit distance (t0 where nothing closer was hit)
                               and barycentrics (0 on a miss)
     slot         int32 [R]    winning triangle slot (-1 on a miss)
-    tri_idx, obj_id, mat_id   int32 [R]  ids from the slot's meta word
+    tri_idx, obj_id, mat_id   int32 [R]  ids from the slot's meta word, or
+                              from `slot_ids` where the scene has one
+                              (`accel/pack.py`; the kernel loads its row)
     traversed, tested         int32 [R]  interior steps, triangle tests
 
 Rays with mask False do nothing: t = t0, slot -1, counters 0.
@@ -54,13 +56,20 @@ def outputs(t0: torch.Tensor) -> dict:
     )
 
 
-def decode(shade: torch.Tensor, res: dict) -> dict:
+def decode(scene, res: dict) -> dict:
     """Hit ids from the meta word in lane 15 of the winning slot's shading
-    record (packet_bvh.py:898-908)."""
+    record (packet_bvh.py:898-908), or where the ids do not fit it, from
+    the slot's row of `scene.slot_ids` (packet_bvh.py:914-922)."""
     slot = res["slot"]
-    meta = shade[slot.clamp_min(0).long(), 15].view(torch.int32)
-    found = (slot >= 0) & (meta >= 0)
-    minus1 = torch.full_like(meta, -1)
+    found = slot >= 0
+    minus1 = torch.full_like(slot, -1)
+    if scene.slot_ids is not None:
+        ids = scene.slot_ids[slot.clamp_min(0).long()]
+        for k, key in enumerate(("tri_idx", "obj_id", "mat_id")):
+            res[key] = torch.where(found, ids[:, k], minus1)
+        return res
+    meta = scene.shade[slot.clamp_min(0).long(), 15].view(torch.int32)
+    found = found & (meta >= 0)
     res["tri_idx"] = torch.where(found, meta & 0xFFFFF, minus1)
     res["obj_id"] = torch.where(found, (meta >> 20) & 0x3F, minus1)
     res["mat_id"] = torch.where(found, (meta >> 26) & 0x3F, minus1)
@@ -188,7 +197,7 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
 def closest_hit_plain(scene, o, d, t0, mask=None) -> dict:
     """The kernel's closest-hit walk in plain PyTorch, lockstep over the
     rays, so t/u/v, ids and counters equal the kernel's."""
-    return decode(scene.shade, _walk_plain(scene, o, d, t0, mask, any_hit=False))
+    return decode(scene, _walk_plain(scene, o, d, t0, mask, any_hit=False))
 
 
 def occluded_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
@@ -247,13 +256,30 @@ def _rays(what, o, d, t0, mask) -> torch.Tensor:
 def stack_tables(what, scene, device) -> list:
     """Check the binary walk's tables on `device`; returns the launch
     arguments `node_records`, `tris4` (pointers) and `record_root`.  The
-    wavefront and Whitted kernels take them too."""
+    wavefront and Whitted kernels take them too.  Raises for a scene the
+    stack walk does not serve (a cell forest, a BVH deeper than
+    STACK_CAP)."""
+    if not scene.stack_walk:
+        raise ValueError(f"{what}: the stack walk does not serve this scene (walk "
+                         f"{scene.walk!r}, depth {scene.depth})")
     kernel_lib.require(
         what, device, node_records=(scene.node_records, torch.int32, None),
         tris4=(scene.tris4, torch.float32, None), shade=(scene.shade, torch.float32, None),
     )
     kernel_lib.require_aligned(what, node_records=scene.node_records, tris4=scene.tris4)
     return [scene.node_records.data_ptr(), scene.tris4.data_ptr(), scene.record_root]
+
+
+def id_tables(what, scene, device) -> list:
+    """Check the hit ids' tables on `device`; returns the closest-hit
+    kernels' launch arguments `shade` and `slot_ids` (a null pointer where
+    the meta word holds the ids): the kernel decodes the winning slot's
+    ids from one or the other."""
+    kernel_lib.require(what, device, shade=(scene.shade, torch.float32, None),
+                       slot_ids=(scene.slot_ids, torch.int32, None))
+    if scene.slot_ids is not None:
+        kernel_lib.require_aligned(what, slot_ids=scene.slot_ids)
+    return [scene.shade.data_ptr(), kernel_lib.ptr(scene.slot_ids)]
 
 
 def closest_hit(scene, o, d, t0, mask=None) -> dict:
@@ -263,7 +289,8 @@ def closest_hit(scene, o, d, t0, mask=None) -> dict:
         return closest_hit_plain(scene, o, d, t0, mask)
     records, tris4, root = stack_tables("closest_hit", scene, o.device)
     out = launch_closest("closest_hit", "crt_closest_hit", o, d, t0, mask,
-                         [records, tris4, scene.shade.data_ptr(), root])
+                         [records, tris4, *id_tables("closest_hit", scene, o.device), root,
+                          int(scene.leaf_codes)])
     closest_hit.launches += 1
     return out
 
@@ -275,7 +302,7 @@ def occluded(scene, o, d, t0, mask=None) -> torch.Tensor:
     if kernel_lib.on_cpu("occluded", o):
         return occluded_plain(scene, o, d, t0, mask)
     out = launch_occluded("occluded", "crt_occluded", o, d, t0, mask,
-                          stack_tables("occluded", scene, o.device))
+                          [*stack_tables("occluded", scene, o.device), int(scene.leaf_codes)])
     occluded.launches += 1
     return out
 

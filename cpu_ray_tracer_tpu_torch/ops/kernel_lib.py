@@ -40,50 +40,57 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "crt_closest_hit": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _ptr, _int,  # node records, tris4, shade, record root
+        _ptr, _ptr, _ptr, _ptr, _int, _int,  # node records, tris4, shade, slot ids, record
+        #                                      root, leaf code form
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int,  # node records, tris4, record root
+        _ptr, _ptr, _int, _int,  # node records, tris4, record root, leaf code form
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_closest_hit_links": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _int, _ptr, _ptr, _int,  # link records, node count, tris4, shade, root
+        _ptr, _int, _ptr, _ptr, _ptr, _int, _int,  # link records, node count, tris4, shade,
+        #                                            slot ids, root, leaf code form
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded_links": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _int, _ptr, _int,  # link records, node count, tris4, root
+        _ptr, _int, _ptr, _int, _int,  # link records, node count, tris4, root, leaf code form
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_closest_hit_wide": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int, _ptr, _ptr,  # wide nodes, wide roots, n_roots, tris4, shade
+        _ptr, _ptr, _int, _ptr, _ptr, _ptr, _int,  # wide nodes, wide roots, n_roots, tris4,
+        #                                            shade, slot ids, leaf code form
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded_wide": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int, _ptr,  # wide nodes, wide roots, n_roots, tris4
+        _ptr, _ptr, _int, _ptr, _int,  # wide nodes, wide roots, n_roots, tris4, leaf code form
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_wavefront_pt": [
         _ptr, _ptr, _ptr, _ptr, _ptr, _int,  # o, d, seed, alive, inside, n
-        _ptr, _ptr, _ptr, _int, _ptr, _int,  # node records, tris4, shade, record root,
-        #                                      params, n_mats
+        _ptr, _int, _int, _int, _int, _ptr,  # walk records, node count, root, links, leaf
+        #                                      code form, tris4
+        _ptr, _ptr, _int,  # shade, params, n_mats
         _int, _int, _int,  # k_depths, depth_limit, depth_base
+        _ptr,  # perm
         *[_ptr] * 13,  # tp, o, d, seed, missed, lit, alive, inside, tex, locus,
         #                traversed, tested, live
         _ptr,  # stream
     ],
     "crt_whitted_wf": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, alive, inside, n
-        _ptr, _ptr, _ptr, _int, _ptr, _int, _int,  # node records, tris4, shade, record
-        #                                            root, params, n_mats, shadow_quirk
+        _ptr, _int, _int, _int, _int, _ptr,  # walk records, node count, root, links, leaf
+        #                                      code form, tris4
+        _ptr, _ptr, _int, _int,  # shade, params, n_mats, shadow_quirk
+        _ptr,  # perm
         *[_ptr] * 10,  # t, flags, mat, tex, irr, r_dir, t_dir, fr, traversed, tested
         _ptr,  # stream
     ],

@@ -27,7 +27,7 @@ import torch
 from cpu_ray_tracer_tpu_torch.accel.pack import N_COUNT, N_FIRST
 from cpu_ray_tracer_tpu_torch.ops import kernel_lib
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
-    decode, launch_closest, launch_occluded, leaf_tests, octants, outputs, slab,
+    decode, id_tables, launch_closest, launch_occluded, leaf_tests, octants, outputs, slab,
 )
 
 
@@ -65,7 +65,7 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
 def closest_hit_links_plain(scene, o, d, t0, mask=None) -> dict:
     """The kernel's closest-hit walk in plain PyTorch, lockstep over the
     rays, so t/u/v, ids and counters equal the kernel's."""
-    return decode(scene.shade, _walk_plain(scene, o, d, t0, mask, any_hit=False))
+    return decode(scene, _walk_plain(scene, o, d, t0, mask, any_hit=False))
 
 
 def occluded_links_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
@@ -79,9 +79,12 @@ def _has_tables(what, scene) -> None:
         raise ValueError(f"{what}: the scene has no link table (walk {scene.walk!r})")
 
 
-def _tables(what, scene, device) -> list:
+def link_tables(what, scene, device) -> list:
     """Check the link walk's tables on `device`; returns the launch
-    arguments `link_records`, the node count and `tris4`."""
+    arguments `link_records`, the node count and `tris4`.  The wavefront
+    and Whitted kernels take them too, on a BVH too deep for the stack
+    walk."""
+    _has_tables(what, scene)
     m = scene.nodes.shape[0]
     kernel_lib.require(
         what, device, link_records=(scene.link_records, torch.int32, (8, m, 8)),
@@ -97,9 +100,10 @@ def closest_hit_links(scene, o, d, t0, mask=None) -> dict:
     _has_tables("closest_hit_links", scene)
     if kernel_lib.on_cpu("closest_hit_links", o):
         return closest_hit_links_plain(scene, o, d, t0, mask)
-    tables = _tables("closest_hit_links", scene, o.device)
+    tables = link_tables("closest_hit_links", scene, o.device)
     out = launch_closest("closest_hit_links", "crt_closest_hit_links", o, d, t0, mask,
-                         [*tables, scene.shade.data_ptr(), scene.root])
+                         [*tables, *id_tables("closest_hit_links", scene, o.device), scene.root,
+                          int(scene.leaf_codes)])
     closest_hit_links.launches += 1
     return out
 
@@ -110,9 +114,9 @@ def occluded_links(scene, o, d, t0, mask=None) -> torch.Tensor:
     _has_tables("occluded_links", scene)
     if kernel_lib.on_cpu("occluded_links", o):
         return occluded_links_plain(scene, o, d, t0, mask)
-    tables = _tables("occluded_links", scene, o.device)
+    tables = link_tables("occluded_links", scene, o.device)
     out = launch_occluded("occluded_links", "crt_occluded_links", o, d, t0, mask,
-                          [*tables, scene.root])
+                          [*tables, scene.root, int(scene.leaf_codes)])
     occluded_links.launches += 1
     return out
 

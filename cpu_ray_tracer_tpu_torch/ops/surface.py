@@ -13,8 +13,9 @@ import numpy as np
 import torch
 
 from cpu_ray_tracer_tpu_torch import constants
-from cpu_ray_tracer_tpu_torch.ops import intersect
-from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit_plain
+from cpu_ray_tracer_tpu_torch.ops import closest_hit, intersect, link_walk
+from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit_plain, occluded_plain
+from cpu_ray_tracer_tpu_torch.ops.link_walk import closest_hit_links_plain, occluded_links_plain
 
 EPS = constants.SHADE_EPS
 INV2PI_W = np.float32(constants.INVPI * 2.0 * np.pi)  # diffuse estimator weight
@@ -56,6 +57,34 @@ def params(scene) -> torch.Tensor:
     return scene.kernel_params
 
 
+def walk_tables(what, scene, device) -> list:
+    """Check the fused kernels' walk tables on `device`; returns their
+    launch arguments: the records, the node count, the root, whether the
+    walk is the link walk (`DeviceScene.stack_walk` false), the leaf code
+    form (`DeviceScene.leaf_codes`), and `tris4`.
+    Raises for a scene whose ids do not fit the meta word, which the
+    kernels read the hit's material from."""
+    if scene.slot_ids is not None:
+        raise ValueError(f"{what}: the scene's hit ids do not fit the meta word the fused "
+                         "kernels read materials from (DeviceScene.stack_kernels)")
+    m, codes = scene.nodes.shape[0], int(scene.leaf_codes)
+    if scene.stack_walk:
+        records, tris4, root = closest_hit.stack_tables(what, scene, device)
+        return [records, m, root, 0, codes, tris4]
+    records, m, tris4 = link_walk.link_tables(what, scene, device)
+    return [records, m, scene.root, 1, codes, tris4]
+
+
+def walk_plain(scene, o, d, t0, mask=None, any_hit: bool = False):
+    """The plain version of the walk the kernels take on `scene`: the
+    binary stack walk, or the link walk where the stack walk does not
+    serve the tree (`DeviceScene.stack_walk`).  The closest hit's dict, or
+    with `any_hit` the occlusion bool [R]."""
+    if scene.stack_walk:
+        return (occluded_plain if any_hit else closest_hit_plain)(scene, o, d, t0, mask)
+    return (occluded_links_plain if any_hit else closest_hit_links_plain)(scene, o, d, t0, mask)
+
+
 def nearest_surface(scene, o, d, walk=None) -> dict:
     """`nearest_surface` of csrc/surface.cuh: light quad -> floor -> BVH walk
     (rays with `walk` [R] False skip the walk), hit info with the back-face
@@ -63,7 +92,7 @@ def nearest_surface(scene, o, d, walk=None) -> dict:
     point p [R, 3] and normal n [R, 3] as xyz triples of [R] tensors, u, v,
     mat, traversed, tested."""
     t, obj = intersect.primitive_hits(scene, o, d)
-    hit = closest_hit_plain(scene, o, d, t, walk)
+    hit = walk_plain(scene, o, d, t, walk)
     t = hit["t"]
     tri = hit["slot"] >= 0
     obj = torch.where(tri, 2, obj)

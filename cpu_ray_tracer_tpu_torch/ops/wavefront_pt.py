@@ -5,9 +5,12 @@ The port of the JAX package's in-kernel bounce wavefront
 (cpu_ray_tracer_tpu/ops/pallas/wavefront_pt.py: `_kernel` :165, `trace`
 :518); the per-ray math is described in `csrc/wavefront_pt.cu`.  Both
 functions take (scene, o, d, seeds, k_depths, depth_limit, alive=None,
-inside=None, depth_base=0) — rays (o, d) [R, 3], seeds [R] (uint32 values
-in int64, as `core/rng` carries them), optional alive / inside [R] bool —
-run depths depth_base + [0, k_depths), and return, in the input order:
+inside=None, depth_base=0, perm=None) — rays (o, d) [R, 3], seeds [R]
+(uint32 values in int64, as `core/rng` carries them), optional alive /
+inside [R] bool, and an optional lane order `perm` int32 [R] (lane j of the
+kernel takes ray perm[j]: `core/camera.lane_order` for camera rays), which
+moves only which rays share a warp — run depths depth_base + [0, k_depths),
+and return, in the input order:
 
     tp            float32 [R, 3]  throughput factor of those depths, texel
                                   factors excluded (starts at 1)
@@ -22,7 +25,8 @@ run depths depth_base + [0, k_depths), and return, in the input order:
 
 Rays dead on entry pass through unchanged.  `trace` runs the plain version
 for tensors on the CPU and launches the kernel for tensors on a CUDA
-device; there is no other fallback.
+device; there is no other fallback.  On a BVH too deep for the stack walk
+both walk the link tables (`DeviceScene.stack_walk`).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import rng
-from cpu_ray_tracer_tpu_torch.ops import closest_hit, kernel_lib, surface
+from cpu_ray_tracer_tpu_torch.ops import kernel_lib, surface
 
 _F32 = torch.float32
 _KEYS = ("tp", "o", "d", "seed", "missed", "lit", "alive", "inside", "tex_idx", "locus",
@@ -108,9 +112,10 @@ def _bounce(scene, s: dict, cutoff: bool) -> dict:
 
 
 def trace_plain(scene, o, d, seeds, k_depths: int, depth_limit: int,
-                alive=None, inside=None, depth_base: int = 0) -> dict:
+                alive=None, inside=None, depth_base: int = 0, perm=None) -> dict:
     """The kernel's per-ray loop in plain PyTorch, lockstep over the rays:
-    each depth gathers the live rays, advances them and scatters back."""
+    each depth gathers the live rays, advances them and scatters back.
+    `perm` changes nothing here: each ray's outputs are its own."""
     r, dev = o.shape[0], o.device
     i32 = dict(dtype=torch.int32, device=dev)
     false = torch.zeros(r, dtype=torch.bool, device=dev)
@@ -145,7 +150,7 @@ def trace_plain(scene, o, d, seeds, k_depths: int, depth_limit: int,
 
 
 def trace(scene, o, d, seeds, k_depths: int, depth_limit: int,
-          alive=None, inside=None, depth_base: int = 0) -> dict:
+          alive=None, inside=None, depth_base: int = 0, perm=None) -> dict:
     """k_depths bounce depths of rays (o, d): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (module docstring)."""
     if kernel_lib.on_cpu("wavefront_pt.trace", o):
@@ -157,8 +162,9 @@ def trace(scene, o, d, seeds, k_depths: int, depth_limit: int,
         "wavefront_pt.trace", dev,
         o=(o, _F32, (r, 3)), d=(d, _F32, (r, 3)), seeds=(seeds, torch.int64, (r,)),
         alive=(alive, torch.bool, (r,)), inside=(inside, torch.bool, (r,)),
+        perm=(perm, torch.int32, (r,)),
     )
-    records, tris4, root = closest_hit.stack_tables("wavefront_pt.trace", scene, dev)
+    walk = surface.walk_tables("wavefront_pt.trace", scene, dev)
     params = surface.params(scene)
     k = kernel_lib.load()
     f32 = dict(dtype=_F32, device=dev)
@@ -174,9 +180,9 @@ def trace(scene, o, d, seeds, k_depths: int, depth_limit: int,
     )
     code = k.lib.crt_wavefront_pt(
         o.data_ptr(), d.data_ptr(), seeds.data_ptr(), kernel_lib.ptr(alive),
-        kernel_lib.ptr(inside), r, records, tris4, scene.shade.data_ptr(), root,
+        kernel_lib.ptr(inside), r, *walk, scene.shade.data_ptr(),
         params.data_ptr(), scene.material_count,
-        k_depths, depth_limit, depth_base,
+        k_depths, depth_limit, depth_base, kernel_lib.ptr(perm),
         *(out[key].data_ptr() for key in (*_KEYS, "live_counts")),
         kernel_lib.stream(dev),
     )

@@ -4,9 +4,11 @@
 The port of the JAX package's fused Whitted level kernel
 (cpu_ray_tracer_tpu/ops/pallas/whitted_wf.py: `_kernel` :70,
 `trace_level0` :346); the per-ray math is described in
-`csrc/whitted_wf.cu`.  Both take (scene, o, d, inside=None, alive=None) —
-rays (o, d) [R, 3], optional inside / alive [R] bool — and return, per ray
-in the input order:
+`csrc/whitted_wf.cu`.  Both take (scene, o, d, inside=None, alive=None,
+perm=None) — rays (o, d) [R, 3], optional inside / alive [R] bool, and an
+optional lane order `perm` int32 [R] (lane j of the kernel takes ray
+perm[j]: `core/camera.lane_order` for camera rays), which moves only which
+rays share a warp — and return, per ray in the input order:
 
     t                     float32 [R]  hit distance (RAY_FAR on a miss)
     miss, lit, surf, vis, emit1, emit2   bool [R]  (the F_* flag bits)
@@ -21,7 +23,8 @@ in the input order:
 
 Dead rays skip both walks and report no hit.  `trace_level0` runs the
 plain version for tensors on the CPU and launches the kernel for tensors
-on a CUDA device; there is no other fallback.
+on a CUDA device; there is no other fallback.  On a BVH too deep for the
+stack walk both walk the link tables (`DeviceScene.stack_walk`).
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ import numpy as np
 import torch
 
 from cpu_ray_tracer_tpu_torch import constants
-from cpu_ray_tracer_tpu_torch.ops import closest_hit, intersect, kernel_lib, surface
-from cpu_ray_tracer_tpu_torch.ops.closest_hit import occluded_plain
+from cpu_ray_tracer_tpu_torch.ops import intersect, kernel_lib, surface
 
 F_MISS, F_LIT, F_SURF, F_VIS, F_EMIT1, F_EMIT2 = 1, 2, 4, 8, 16, 32  # whitted_wf.py:62-67
 _FLAGS = dict(miss=F_MISS, lit=F_LIT, surf=F_SURF, vis=F_VIS, emit1=F_EMIT1, emit2=F_EMIT2)
@@ -39,8 +41,9 @@ _F32 = torch.float32
 EPS = constants.SHADE_EPS
 
 
-def trace_level0_plain(scene, o, d, inside=None, alive=None) -> dict:
-    """The kernel's per-ray math in plain PyTorch, over all rays at once."""
+def trace_level0_plain(scene, o, d, inside=None, alive=None, perm=None) -> dict:
+    """The kernel's per-ray math in plain PyTorch, over all rays at once
+    (`perm` changes nothing here: each ray's outputs are its own)."""
     r, dev = o.shape[0], o.device
     live = torch.ones(r, dtype=torch.bool, device=dev) if alive is None else alive
     ins = torch.zeros(r, dtype=torch.bool, device=dev) if inside is None else inside
@@ -68,7 +71,7 @@ def trace_level0_plain(scene, o, d, inside=None, alive=None) -> dict:
     _, occ_q = intersect.quad(so, ld, scene.light_inv_t, scene.light_size, dmax)
     walk = do_diffuse & (ndotl >= EPS) & ~occ_q
     t0 = torch.full_like(dmax, constants.RAY_FAR) if scene.shadow_quirk else dmax
-    vis = walk & ~occluded_plain(scene, so, ld, t0, walk)
+    vis = walk & ~surface.walk_plain(scene, so, ld, t0, walk, any_hit=True)
     att = 1.0 / torch.clamp_min(dist * dist, np.float32(1e-20))
     irr = torch.where(vis, att * ndotl, np.float32(0.0))
 
@@ -84,7 +87,7 @@ def trace_level0_plain(scene, o, d, inside=None, alive=None) -> dict:
     )
 
 
-def trace_level0(scene, o, d, inside=None, alive=None) -> dict:
+def trace_level0(scene, o, d, inside=None, alive=None, perm=None) -> dict:
     """One Whitted level of rays (o, d): the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (module docstring)."""
     if kernel_lib.on_cpu("whitted_wf.trace_level0", o):
@@ -94,8 +97,9 @@ def trace_level0(scene, o, d, inside=None, alive=None) -> dict:
         "whitted_wf.trace_level0", dev,
         o=(o, _F32, (r, 3)), d=(d, _F32, (r, 3)),
         inside=(inside, torch.bool, (r,)), alive=(alive, torch.bool, (r,)),
+        perm=(perm, torch.int32, (r,)),
     )
-    records, tris4, root = closest_hit.stack_tables("whitted_wf.trace_level0", scene, dev)
+    walk = surface.walk_tables("whitted_wf.trace_level0", scene, dev)
     params = surface.params(scene)
     k = kernel_lib.load()
     f32 = dict(dtype=_F32, device=dev)
@@ -107,9 +111,9 @@ def trace_level0(scene, o, d, inside=None, alive=None) -> dict:
         fr=torch.empty(r, **f32), traversed=torch.empty(r, **i32), tested=torch.empty(r, **i32),
     )
     code = k.lib.crt_whitted_wf(
-        o.data_ptr(), d.data_ptr(), kernel_lib.ptr(alive), kernel_lib.ptr(inside), r,
-        records, tris4, scene.shade.data_ptr(), root, params.data_ptr(), scene.material_count,
-        int(scene.shadow_quirk),
+        o.data_ptr(), d.data_ptr(), kernel_lib.ptr(alive), kernel_lib.ptr(inside), r, *walk,
+        scene.shade.data_ptr(), params.data_ptr(), scene.material_count,
+        int(scene.shadow_quirk), kernel_lib.ptr(perm),
         *(out[key].data_ptr() for key in (
             "t", "flags", "mat", "tex_idx", "irr_scale", "r_dir", "t_dir", "fr",
             "traversed", "tested",

@@ -29,12 +29,11 @@ from __future__ import annotations
 
 import torch
 
-from cpu_ray_tracer_tpu_torch.accel.wide import (
-    LEAF_SHIFT, W_CHILD, W_ORDER, WIDE, WIDE_STACK_CAP,
-)
+from cpu_ray_tracer_tpu_torch.accel.pack import LEAF_SHIFT
+from cpu_ray_tracer_tpu_torch.accel.wide import W_CHILD, W_ORDER, WIDE, WIDE_STACK_CAP
 from cpu_ray_tracer_tpu_torch.ops import kernel_lib
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
-    decode, launch_closest, launch_occluded, leaf_tests, octants, outputs, slab,
+    decode, id_tables, launch_closest, launch_occluded, leaf_tests, octants, outputs, slab,
 )
 
 
@@ -51,6 +50,15 @@ def _nearest(bits: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
         s = (order >> (3 * rank)) & 7
         sel = torch.where((sel < 0) & (((bits >> s) & 1) > 0), s, sel)
     return sel
+
+
+def leaf_fields(scene, code: torch.Tensor):
+    """(first slot, triangle count) of leaf codes (accel/pack.py): count <<
+    LEAF_SHIFT | first where the scene's leaves fit, else the first slot,
+    whose `tris4` word 3 counts the leaf's slots."""
+    if scene.leaf_codes:
+        return code & ((1 << LEAF_SHIFT) - 1), (code >> LEAF_SHIFT).to(torch.int32)
+    return code, scene.tris4.view(torch.int32)[code.long(), 3]
 
 
 def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
@@ -83,12 +91,13 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
             boxes[c].reshape(-1, 6), o[ids].repeat_interleave(WIDE, 0),
             rd[ids].repeat_interleave(WIDE, 0), res["t"][ids].repeat_interleave(WIDE, 0),
         ).reshape(n, WIDE)
-        count = child >> LEAF_SHIFT
+        # a leaf child word is ~code (accel/pack.py leaf_refs)
+        leaf = child < 0
         for k in range(WIDE):
-            m = hit[:, k] & (count[:, k] > 0)
-            first = child[m, k] & ((1 << LEAF_SHIFT) - 1)
-            leaf_tests(tris, ids[m], first, count[m, k], o, d, res)
-        interior = hit & (child > 0) & (count == 0)
+            m = hit[:, k] & leaf[:, k]
+            first, count = leaf_fields(scene, ~child[m, k])
+            leaf_tests(tris, ids[m], first, count, o, d, res)
+        interior = hit & (child > 0)
         ibits = (interior.long() * _bit(torch.arange(WIDE, device=dev))).sum(1)
         sel = _nearest(ibits, rec.gather(1, order_col[ids, None])[:, 0])
         down = sel >= 0
@@ -122,7 +131,7 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
 def closest_hit_wide_plain(scene, o, d, t0, mask=None) -> dict:
     """The kernel's closest-hit walk in plain PyTorch, lockstep over the
     rays, so t/u/v, ids and counters equal the kernel's."""
-    return decode(scene.shade, _walk_plain(scene, o, d, t0, mask, any_hit=False))
+    return decode(scene, _walk_plain(scene, o, d, t0, mask, any_hit=False))
 
 
 def occluded_wide_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
@@ -155,7 +164,8 @@ def closest_hit_wide(scene, o, d, t0, mask=None) -> dict:
         return closest_hit_wide_plain(scene, o, d, t0, mask)
     tables = _tables("closest_hit_wide", scene, o.device)
     out = launch_closest("closest_hit_wide", "crt_closest_hit_wide", o, d, t0, mask,
-                         [*tables, scene.shade.data_ptr()])
+                         [*tables, *id_tables("closest_hit_wide", scene, o.device),
+                          int(scene.leaf_codes)])
     closest_hit_wide.launches += 1
     return out
 
@@ -167,7 +177,8 @@ def occluded_wide(scene, o, d, t0, mask=None) -> torch.Tensor:
     if kernel_lib.on_cpu("occluded_wide", o):
         return occluded_wide_plain(scene, o, d, t0, mask)
     tables = _tables("occluded_wide", scene, o.device)
-    out = launch_occluded("occluded_wide", "crt_occluded_wide", o, d, t0, mask, tables)
+    out = launch_occluded("occluded_wide", "crt_occluded_wide", o, d, t0, mask,
+                          [*tables, int(scene.leaf_codes)])
     occluded_wide.launches += 1
     return out
 

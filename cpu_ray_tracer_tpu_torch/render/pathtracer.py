@@ -19,17 +19,20 @@ light hit) and a finished ray's direction and throughput never change
 again, so the state keeps two bits (`missed`, `lit`) and the emission is
 applied after the last depth.
 
-`wavefront_depths=k` runs depths [0, k) in one launch of the wavefront
-kernel (`ops/wavefront_pt.py`), with the state in registers and the rays in
-pixel order; its textured hits multiply albedo 1 and record texel indices,
-whose factors multiply the radiance at the end (albedo only scales the
-throughput).  The rays still alive go on through the host bounce from
-depth k.  k = 0 is the host bounce alone.  The kernel walks the binary
-stack tables, so it serves only scenes that have them
-(`DeviceScene.stack_kernels`, the JAX package's `_kernel_scene_eligible`,
-render/pathtracer.py:473-500): `wavefront_depths=None` takes
-`WAVEFRONT_DEPTHS` there and the host bounce elsewhere (grid, KD tree, a
-wide-only BVH); an explicit k > 0 on such a scene raises.
+`wavefront_depths=k` runs depths [0, k) in the wavefront kernel
+(`ops/wavefront_pt.py`) in one launch; at k = 1 a frame's camera rays go
+to the kernel's lanes in `core/camera.lane_order` (a warp per 8x4 pixel
+tile), which is faster there and slower at k = 6 on an H100 (PERF.md), so
+other k keep pixel order.  Its textured hits multiply albedo 1 and record
+texel indices, whose factors multiply the radiance at the end (albedo only
+scales the throughput).  The rays still alive go on through the host
+bounce from depth k.  k = 0 is the host bounce alone.  The kernel walks a
+binary BVH's stack or link tables and reads materials from the meta word,
+so it serves only such scenes (`DeviceScene.stack_kernels`, the JAX
+package's `_kernel_scene_eligible`, render/pathtracer.py:473-500):
+`wavefront_depths=None` takes `WAVEFRONT_DEPTHS` there and the host bounce
+elsewhere (grid, KD tree, a wide-only BVH, hit ids past the meta word); an
+explicit k > 0 on such a scene raises.
 
 The ray state of the host bounce stays in pixel order.  At each depth the
 live rays are gathered, ordered by (direction octant, previous hit: the
@@ -156,12 +159,13 @@ def initial_state(o, d, seeds) -> dict:
 
 
 def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT,
-                    wavefront_depths: int | None = None):
+                    wavefront_depths: int | None = None, perm=None):
     """Radiance [R, 3] along rays (o, d) [R, 3] with per-ray seeds [R]
     (uint32 values in int64), in the input ray order, and stats:
     `rays_traced` (path segments traced, an int), per-ray `traversed` and
     `tested` counters.  The first `wavefront_depths` depths run in the
-    wavefront kernel (module docstring)."""
+    wavefront kernel (module docstring), its lanes taking the rays in the
+    order `perm` int32 [R] where given and the kernel runs one depth."""
     wavefront_depths = wavefront_depths_for(scene, wavefront_depths)
     factor = None
     first = 0
@@ -169,7 +173,8 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
     if wavefront_depths > 0:
         first = min(wavefront_depths, depth_limit + 1)
         with torch.profiler.record_function(f"wavefront_{first}"):
-            wf = wavefront_pt.trace(scene, o, d, seeds, first, depth_limit)
+            wf = wavefront_pt.trace(scene, o, d, seeds, first, depth_limit,
+                                    perm=perm if first == 1 else None)
             factor = query.texel_factor(scene, wf["tex_idx"][:, 0])
             for k in range(1, first):
                 factor = factor * query.texel_factor(scene, wf["tex_idx"][:, k])
@@ -222,5 +227,6 @@ def render_pass(scene, camera: cam_mod.Camera, spp_index: int,
     """One progressive pass, one jittered sample per pixel.  Returns
     (radiance [H, W, 3], stats)."""
     o, d, seeds = camera_rays(camera, spp_index, scene.device)
-    radiance, stats = sample_radiance(scene, o, d, seeds, depth_limit, wavefront_depths)
+    radiance, stats = sample_radiance(scene, o, d, seeds, depth_limit, wavefront_depths,
+                                      cam_mod.lane_order(camera, scene.device))
     return radiance.reshape(camera.height, camera.width, 3), stats

@@ -60,7 +60,7 @@ def level_kernel_for(scene, level_kernel) -> bool:
     return bool(level_kernel)
 
 
-def _level_host(scene, o, d, inside) -> dict:
+def _level_host(scene, o, d, inside, perm=None) -> dict:
     """One level's hits, albedo, irradiance and dielectric terms through the
     host queries (`_shade_level`)."""
     res = query.find_nearest(scene, o, d)
@@ -82,10 +82,11 @@ def _level_host(scene, o, d, inside) -> dict:
     )
 
 
-def _level_kernel(scene, o, d, inside) -> dict:
+def _level_kernel(scene, o, d, inside, perm=None) -> dict:
     """The same through one launch of the Whitted level kernel
-    (`_shade_level_kernel`)."""
-    wf = whitted_wf.trace_level0(scene, o, d, inside)
+    (`_shade_level_kernel`), its lanes taking the rays in the order
+    `perm` where given."""
+    wf = whitted_wf.trace_level0(scene, o, d, inside, perm=perm)
     mf = query.material_fields(scene, wf["mat"])
     texed = (wf["tex_idx"] >= 0)[:, None]
     return dict(
@@ -135,11 +136,14 @@ def _shade(scene, lv: dict, d, inside, weight):
 
 
 def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT,
-             level_kernel: bool | None = None):
+             level_kernel: bool | None = None, perm=None):
     """Whitted radiance [R, 3] along rays (o, d) [R, 3] (outside every
     medium), in the input order, and stats: the first level's per-ray
     `traversed` and `tested`, `rays` (rays traced over all levels, an int)
-    and `levels` (levels traced)."""
+    and `levels` (levels traced).  The level kernel's lanes take the first
+    level's rays in the order `perm` int32 [R] where given (a frame's
+    `core/camera.lane_order`); later levels, which the children's gather
+    builds, in their own order."""
     level = _level_kernel if level_kernel_for(scene, level_kernel) else _level_host
     n, dev = o.shape[0], o.device
     pixel = torch.arange(n, device=dev)
@@ -149,7 +153,7 @@ def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT,
     rays = 0
     for depth in range(depth_limit + 1):
         with torch.profiler.record_function(f"level_{depth}"):
-            lv = level(scene, o, d, inside)
+            lv = level(scene, o, d, inside, perm if depth == 0 else None)
             contrib, ch = _shade(scene, lv, d, inside, weight)
             rays += o.shape[0]
             if film is None:
@@ -176,7 +180,8 @@ def render(scene, camera: cam_mod.Camera, depth_limit: int = constants.DEPTH_LIM
     [H, W, 3], traversed and tested [H, W] of the primary rays, dropped
     (always 0: no child is ever dropped), rays, levels)."""
     o, d = cam_mod.full_frame_rays(camera, device=scene.device)
-    film, stats = radiance(scene, o, d, depth_limit, level_kernel)
+    film, stats = radiance(scene, o, d, depth_limit, level_kernel,
+                           cam_mod.lane_order(camera, scene.device))
     hw = (camera.height, camera.width)
     return dict(
         image=film.reshape(*hw, 3), traversed=stats["traversed"].reshape(hw),

@@ -125,7 +125,7 @@ def compile_scene(
             wide_pack = wide_mod.pack_wide(
                 host["node_min"], host["node_max"], host["left"], host["right"],
                 host["tri_count"], host["root"],
-                packed.nodes[:, pack.N_FIRST], packed.nodes[:, pack.N_COUNT],
+                packed.nodes[:, pack.N_FIRST], packed.nodes[:, pack.N_COUNT], packed.leaf_codes,
             )
     else:
         packed = _build_cell_forest(accel, inst_v, all_v, shade16, ids)

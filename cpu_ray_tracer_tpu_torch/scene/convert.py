@@ -13,13 +13,18 @@ the two scene compilers agree.
   triangle row, row count), `packed.node_nearfar` [8, 2, M] (absent when
   the root is a leaf), `packed.tri_rows` and `packed.tri_shade_rows`
   [R, 128] (8 triangles of 16 floats per row, degenerate padding);
+* where the hit ids do not fit the meta word (`meta["meta_in_shade"]`
+  False), `packed.slot_tri` [8R] and `tris.obj_id`, `tris.mat_id` [N],
+  from which the ids of each slot are joined (`accel/pack.py` slot_ids);
 * `materials.albedo`, `.reflectivity`, `.refractivity`, `.absorption`,
   `.tex_id`, `.is_light`;
 * `atlas.texels`, `.packed`, `.offset`, `.width`, `.height`;
 * `light_t`, `light_inv_t`, `light_size`, `light_color`, `floor_inv_to`.
 
 `meta`: `root`, `stack_depth` (0 when the root is a leaf), `skydome_tex`,
-and optionally `shadow_quirk` (default True).
+and optionally `shadow_quirk` (default True) and `meta_in_shade` (default
+True).  A tree deeper than the stack walk's STACK_CAP is threaded with
+links here (`pack.make_tables`), as the JAX package walks it by its links.
 """
 
 from __future__ import annotations
@@ -42,9 +47,15 @@ def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
     row_start, nrows = np.asarray(a["packed.node_meta2"], np.int64)
     rows = np.asarray(a["packed.tri_rows"], np.float32).reshape(-1, _SLOT_F)
     shade_rows = np.asarray(a["packed.tri_shade_rows"], np.float32).reshape(-1, _SLOT_F)
-    # a real triangle's meta word has obj >= 2 in bits 20-25; padding slots
-    # are all-zero records
+    # a real triangle's lane 15 is its meta word, whose obj >= 2 sets bits
+    # 20-25, or its material id >= 2 as a float; padding slots are all-zero
+    # records
     real = shade_rows.view(np.int32)[:, 15] != 0
+    slot_ids = None
+    if not meta.get("meta_in_shade", True):
+        slot_ids = pack.slot_id_table(
+            np.asarray(a["packed.slot_tri"], np.int64)[real],
+            np.asarray(a["tris.obj_id"]), np.asarray(a["tris.mat_id"]))
     prefix = np.concatenate([[0], np.cumsum(real)])
     leaf = nrows > 0
     first = np.where(leaf, prefix[row_start * _SLOTS_PER_ROW], 0)
@@ -62,6 +73,7 @@ def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
     packed = pack.make_tables(
         aabb[:3].T, aabb[3:].T, first, count, np.asarray(nearfar, np.int32),
         rows[real, :9], shade_rows[real], root=int(meta["root"]), depth=depth,
+        slot_ids=slot_ids,
     )
     materials = MaterialTable(
         albedo=a["materials.albedo"],

@@ -5,9 +5,12 @@ The counterpart of the JAX package's `cpu_ray_tracer_tpu/scene/types.py`
 for the TLAS-baked layout, over any of its accelerators.  Fields:
 
 * `nodes`, `tris`, `shade`: the closest-hit tables (`accel/pack.py`);
-* `links` (cell forests) and `wide_nodes`, `wide_roots` (a wide BVH): the
-  tables of the link walk and the wide walk, None where absent; `roots`,
-  the forest's roots in walk order;
+  `slot_ids` int32 [S, 4], each slot's (tri, obj, mat) where the ids do
+  not fit the meta word in lane 15 of `shade`, else None;
+* `links` (cell forests, and a BVH deeper than the stack walk's
+  `STACK_CAP`) and `wide_nodes`, `wide_roots` (a wide BVH): the tables of
+  the link walk and the wide walk, None where absent; `roots`, the
+  forest's roots in walk order;
 * the tables the CUDA walks read, built from those (`accel/pack.py`):
   `node_records` int32 [M, 16] (the binary stack walk: both children's
   boxes and refs and the per-octant swap mask in one 64-byte record per
@@ -18,11 +21,19 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
   padded to 16 bytes each);
 * `walk`: which kernel answers the scene's closest-hit and any-hit
   queries: "stack" (the binary walk, `ops/closest_hit.py`), "links" (the
-  grid and KD cell forests, `ops/link_walk.py`) or "wide" (`ops/wide_bvh.py`);
-* `stack_kernels`: whether the wavefront and Whitted level kernels, which
-  walk the binary stack tables, may serve the scene: a binary BVH, alone
-  or with wide tables for the host queries only (`wide_bounce`, the JAX
-  package's `CRT_WIDE=bounce`);
+  grid and KD cell forests and a BVH too deep for the stack,
+  `ops/link_walk.py`) or "wide" (`ops/wide_bvh.py`);
+* `leaf_codes`: the walk records' leaf code form (`accel/pack.py`): the
+  count beside the first slot, or the first slot alone;
+* `stack_walk`: whether the binary stack walk serves the tree (a BVH of
+  depth <= STACK_CAP); the wavefront and Whitted level kernels walk the
+  stack tables where it does and the link tables where it does not (the
+  JAX package's gate, wavefront_pt.py:563-568);
+* `stack_kernels`: whether the wavefront and Whitted level kernels may
+  serve the scene: a binary BVH, alone or with wide tables for the host
+  queries only (`wide_bounce`, the JAX package's `CRT_WIDE=bounce`), whose
+  ids fit the meta word (the JAX package's `_kernel_scene_eligible`,
+  render/pathtracer.py:473-500, which also turns away the cell forests);
 * `pool` float32 [N, 9]: v0, e1, e2 of every triangle by pool id (the
   triangle pool; hit ids index it);
 * `mat_*`: the material table, plus each material's texture offset, width
@@ -89,6 +100,7 @@ class DeviceScene(nn.Module):
         buf("nodes", packed.nodes, np.int32)
         buf("tris", packed.tris, np.float32)
         buf("shade", packed.shade, np.float32)
+        buf("slot_ids", packed.slot_ids, np.int32)
         buf("pool", pool, np.float32)
         self.root = packed.root
         self.roots = packed.roots
@@ -101,11 +113,14 @@ class DeviceScene(nn.Module):
         buf("tris4", packed.tris4, np.float32)
         buf("wide_nodes", None if wide is None else wide.nodes, np.int32)
         buf("wide_roots", None if wide is None else wide.roots, np.int32)
-        if packed.links is not None:
-            self.walk = "links"
+        self.stack_walk = packed.stack
+        self.leaf_codes = packed.leaf_codes
+        if wide is not None:
+            self.walk = "wide"
         else:
-            self.walk = "stack" if wide is None else "wide"
-        self.stack_kernels = packed.links is None and (wide is None or wide_bounce)
+            self.walk = "stack" if packed.stack else "links"
+        self.stack_kernels = (not packed.cell_forest and packed.slot_ids is None
+                              and (wide is None or wide_bounce))
 
         buf("mat_albedo", materials.albedo, np.float32)
         buf("mat_reflectivity", materials.reflectivity, np.float32)

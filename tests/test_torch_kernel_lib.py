@@ -127,10 +127,10 @@ def test_wrappers_reject_other_devices():
 
 
 def test_walk_records_follow_the_header_layout():
-    """The walk records' sizes and leaf encoding (accel/pack.py) against the
-    constants csrc/ptraverse.cuh reads them with."""
+    """The walk records' sizes and the stack capacity (accel/pack.py)
+    against the constants csrc/ptraverse.cuh reads them with."""
     c = _constants("ptraverse.cuh")
-    assert c["LEAF_SHIFT"] == pack.LEAF_SHIFT and c["STACK_CAP"] == pack.STACK_CAP
+    assert c["STACK_CAP"] == pack.STACK_CAP and c["LEAF_SHIFT"] == pack.LEAF_SHIFT
     assert 4 * c["RECORD_INT4"] == pack.RECORD_WORDS
     assert 4 * c["LINK_RECORD_INT4"] == pack.LINK_RECORD_WORDS
     scene, _ = compile_scene(os.path.join(SCENES, "cube_scene.xml"), device="cpu")

@@ -25,6 +25,7 @@ from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
     closest_hit, closest_hit_plain, occluded, occluded_plain,
 )
 from cpu_ray_tracer_tpu_torch.render import borderline, pathtracer, whitted
+from cpu_ray_tracer_tpu_torch.scene import query, synthetic
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from torch_rays import axis_aligned_rays, flat_quads_xml, in_plane_rays, node_bounds, random_rays
 
@@ -261,6 +262,117 @@ def test_accel_renders_on_card_match_cpu(accel_scenes, cuda):
         (*cam_mod.full_frame_rays(cam, device="cpu"), None), out["image"].cpu(), ref,
     )
     assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
+
+
+# the scenes past the old limits of the walk records (scene/synthetic.py)
+LIMITS = ["deep_100", "deep_140", "big_leaf_bvh", "big_leaf_grid", "big_leaf_kdtree", "cubes70"]
+
+
+@pytest.fixture(scope="module", params=LIMITS)
+def limit_scenes(request, cuda, tmp_path_factory):
+    name = request.param
+    directory = str(tmp_path_factory.mktemp(name))
+    if name.startswith("deep"):
+        base, _ = compile_scene(os.path.join(ASSETS, "scenes", "cube_scene.xml"), device="cpu")
+        cpu = synthetic.scene_over(base, synthetic.caterpillar(int(name[5:])))
+    elif name == "cubes70":
+        cpu, _ = compile_scene(synthetic.cubes_xml(directory, ASSETS), device="cpu")
+    else:
+        xml = synthetic.big_leaf_xml(directory, ASSETS)
+        if name == "big_leaf_bvh":
+            cpu = synthetic.scene_over(compile_scene(xml, device="cpu")[0],
+                                       synthetic.big_leaf_bvh())
+        else:
+            cpu, _ = compile_scene(xml, device="cpu", accel=name.split("_")[-1])
+    return name, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _camera_rays(scene, device, w=96, h=60):
+    cam = cam_mod.make_camera(w, h)
+    o, d, seeds = pathtracer.camera_rays(cam, 3, device)
+    t0, _ = intersect.primitive_hits(scene, o, d)
+    return cam, o, d, t0, seeds
+
+
+@pytest.mark.parametrize("kind", ["primary", "random"])
+def test_limit_scene_walks_match_plain(limit_scenes, kind, cuda):
+    """K1 (the stack walk: 100 levels with more than 64 stack entries, the
+    600-triangle leaf, the wide ids' slot table) and K2 (the 140-level BVH
+    by links, the big leaf in the grid and KD tree), closest and any hit,
+    against their plain versions on the card."""
+    name, _, scene = limit_scenes
+    assert scene.walk == ("stack" if name in ("deep_100", "big_leaf_bvh", "cubes70") else "links")
+    if kind == "primary":
+        _, o, d, t0, _ = _camera_rays(scene, cuda)
+        mask = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    else:
+        bmin, bmax = node_bounds(scene.nodes.cpu().numpy())
+        o, d, t0, mask = (torch.from_numpy(x).to(cuda) for x in random_rays(bmin, bmax, 4096, 7))
+    links = scene.walk == "links"
+    plain = link_walk.closest_hit_links_plain if links else closest_hit_plain
+    any_plain = link_walk.occluded_links_plain if links else occluded_plain
+    got = query.triangle_hit(scene, o, d, t0, mask)
+    torch.cuda.synchronize()
+    want = plain(scene, o, d, t0, mask)
+    _same(got, want)
+    if kind == "primary":  # (random rays miss the big leaf's one plane)
+        assert bool((got["tri_idx"] >= 0).any())
+    if name == "cubes70":
+        assert int(got["obj_id"].max()) > 63
+    if name.startswith("big_leaf") and kind == "primary":
+        assert int(got["tested"].max()) >= synthetic.BIG_LEAF
+    for tmax in (t0, torch.full_like(t0, 1.5)):
+        occ = query.triangle_occluded(scene, o, d, tmax, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, any_plain(scene, o, d, tmax, mask))
+
+
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_fused_kernels_on_limit_scenes_match_plain(limit_scenes, k, cuda):
+    """K3 and K4 on the stack branch (100 levels, the big leaf's BVH) and
+    the link branch (140 levels; the big leaf's grid and KD forests, which
+    the renderers keep on the host route) against their plain versions;
+    the wide ids' scene, whose materials the meta word does not hold, is
+    refused."""
+    name, _, scene = limit_scenes
+    cam, o, d, _, seeds = _camera_rays(scene, cuda)
+    if scene.slot_ids is not None:
+        with pytest.raises(ValueError, match="meta word"):
+            wavefront_pt.trace(scene, o, d, seeds, k, 5)
+        return
+    perm = cam_mod.lane_order(cam, cuda)
+    _same(wavefront_pt.trace(scene, o, d, seeds, k, 5, perm=perm),
+          wavefront_pt.trace_plain(scene, o, d, seeds, k, 5))
+    if k == 1:
+        _, inside = _flags(o.shape[0], cuda, 9)
+        _same(whitted_wf.trace_level0(scene, o, d, inside, perm=perm),
+              whitted_wf.trace_level0_plain(scene, o, d, inside))
+
+
+@pytest.mark.parametrize("k", [1, 6])
+def test_permuted_wavefront_matches_plain(scenes, k, cuda):
+    """K3 in pixel order and in the camera's lane order: every output at
+    the ray's own index, bit-equal to the plain version, live counts
+    exact."""
+    _, scene = scenes
+    cam, o, d, _, seeds = _camera_rays(scene, cuda)
+    want = wavefront_pt.trace_plain(scene, o, d, seeds, k, 5)
+    for perm in (None, cam_mod.lane_order(cam, cuda)):
+        before = wavefront_pt.trace.launches
+        got = wavefront_pt.trace(scene, o, d, seeds, k, 5, perm=perm)
+        torch.cuda.synchronize()
+        assert wavefront_pt.trace.launches == before + 1
+        _same(got, want)
+
+
+def test_permuted_whitted_matches_plain(scenes, cuda):
+    """K4 with the camera's lane order: bit-equal to the plain version."""
+    _, scene = scenes
+    cam, o, d, _, _ = _camera_rays(scene, cuda)
+    _, inside = _flags(o.shape[0], cuda, 9)
+    want = whitted_wf.trace_level0_plain(scene, o, d, inside)
+    for perm in (None, cam_mod.lane_order(cam, cuda)):
+        _same(whitted_wf.trace_level0(scene, o, d, inside, perm=perm), want)
 
 
 @pytest.fixture(scope="module")

@@ -84,3 +84,23 @@ def test_full_frame_rays_allclose(w, h, kw):
     plain = jax_cam.full_frame_rays(jc)
     _, d0 = camera.full_frame_rays(tc, device="cpu")
     np.testing.assert_allclose(d0.numpy(), np.asarray(plain.d), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("size", [(96, 60), (1280, 720), (37, 11)])
+def test_lane_order_tiles_the_frame(size):
+    """The fused kernels' lane order is a permutation of the frame's
+    pixels; on a frame of whole 8x4 tiles each warp of 32 lanes takes one
+    tile, and on a ragged frame each warp still spans at most two tiles'
+    rows."""
+    w, h = size
+    cam = camera.make_camera(w, h)
+    perm = camera.lane_order(cam, "cpu").numpy()
+    assert perm.dtype == np.int32 and np.array_equal(np.sort(perm), np.arange(w * h))
+    assert camera.lane_order(cam, "cpu").data_ptr() == camera.lane_order(cam, "cpu").data_ptr()
+    n = (w * h) // 32 * 32
+    y, x = np.divmod(perm[:n].reshape(-1, 32), w)
+    if w % camera.TILE_W == 0 and h % camera.TILE_H == 0:
+        assert ((y.max(1) - y.min(1)) == 3).all() and ((x.max(1) - x.min(1)) == 7).all()
+        assert (perm.reshape(-1, 32)[:, 0] % w % 8 == 0).all()
+    else:
+        assert ((y.max(1) - y.min(1)) <= 2 * camera.TILE_H).all()

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from cpu_ray_tracer_tpu.ops.pallas import wide_bvh as jax_wide
-from cpu_ray_tracer_tpu_torch.accel import wide
+from cpu_ray_tracer_tpu_torch.accel import pack, wide
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
 from cpu_ray_tracer_tpu_torch.ops import closest_hit, intersect, wavefront_pt, whitted_wf, wide_bvh
 from cpu_ray_tracer_tpu_torch.render import pathtracer, whitted
@@ -57,16 +57,19 @@ def test_wide_tables_equal(pair):
     np.testing.assert_array_equal(nodes[:, wide.W_ORDER:], np.asarray(pk.orderw).T)
     child = nodes[:, wide.W_CHILD : wide.W_CHILD + wide.WIDE]
     cmeta = np.asarray(pk.cmeta).T
-    leaf, jax_leaf = child >> wide.LEAF_SHIFT > 0, cmeta >> wide.LEAF_SHIFT > 0
+    # the port's leaf word is ~(count << 22 | first) (the in-tree scenes'
+    # leaves fit it), the JAX package's row | nrows << 22
+    assert port.leaf_codes
+    shift, mask = pack.LEAF_SHIFT, (1 << pack.LEAF_SHIFT) - 1
+    leaf, jax_leaf = child < 0, cmeta >> shift > 0
     np.testing.assert_array_equal(leaf, jax_leaf)
     np.testing.assert_array_equal(child[~leaf], cmeta[~jax_leaf])  # interior ids, empty 0
     # leaf children: the same triangles in the same order
     meta = port.shade.numpy().view(np.int32)[:, 15] & 0xFFFFF
     slot_tri = np.asarray(pk.slot_tri)
-    mask = (1 << wide.LEAF_SHIFT) - 1
     for w, k in zip(*np.nonzero(leaf)):
-        first, count = child[w, k] & mask, child[w, k] >> wide.LEAF_SHIFT
-        row, nrows = cmeta[w, k] & mask, cmeta[w, k] >> wide.LEAF_SHIFT
+        first, count = ~child[w, k] & mask, ~child[w, k] >> shift
+        row, nrows = cmeta[w, k] & mask, cmeta[w, k] >> shift
         ids = slot_tri[row * 8 : (row + nrows) * 8]
         assert meta[first : first + count].tolist() == ids[ids >= 0].tolist(), (w, k)
 
@@ -215,4 +218,4 @@ def test_wide_stack_capacity_is_checked_at_pack_time():
     lo = np.zeros((n, 3), np.float32)
     hi = np.ones((n, 3), np.float32)
     with pytest.raises(ValueError, match="stack capacity"):
-        wide.pack_wide(lo, hi, left, right, count, 0, np.arange(n), count)
+        wide.pack_wide(lo, hi, left, right, count, 0, np.arange(n), count, True)

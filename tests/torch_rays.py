@@ -6,6 +6,8 @@ import os
 
 import numpy as np
 
+from cpu_ray_tracer_tpu_torch.scene.synthetic import write_scene_xml
+
 
 def node_bounds(nodes: np.ndarray):
     """(bmin [M, 3], bmax [M, 3]) of the port's int32 node records."""
@@ -118,24 +120,9 @@ def flat_quads_xml(directory, assets: str) -> str:
         f.write("v -0.5 0 -0.5\nv 0.5 0 -0.5\nv 0.5 0 0.5\nv -0.5 0 0.5\n"
                 "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 1 0\n"
                 "f 1/1/1 2/2/1 3/3/1 4/4/1\n")
-    xyz = lambda tag, x, y, z: f"<{tag}><x>{x}</x><y>{y}</y><z>{z}</z></{tag}>"  # noqa: E731
-    objects = "".join(
-        f"<object><model_location>{obj}</model_location><material_idx>0</material_idx>"
-        + xyz("position", 0.3 * i, y, 2.0 + 0.4 * i) + xyz("rotation", 0, 0, 0)
-        + xyz("scale", 1, 1, 1) + "</object>"
-        for i, y in enumerate(QUAD_HEIGHTS)
-    )
-    xml = os.path.join(directory, "flat_quads.xml")
-    with open(xml, "w") as f:
-        f.write(
-            "<scene><scene_name>flat quads</scene_name>" + xyz("light_position", 0, 2, 1)
-            + f"<plane_texture_location>{assets}/textures/log_fence.png</plane_texture_location>"
-            + f"<skydome_location>{assets}/industrial_sunset_puresky_4k.png</skydome_location>"
-            + f"<objects>{objects}</objects><materials><material><reflectivity>0</reflectivity>"
-            + "<refractivity>0</refractivity>" + xyz("absorption", 0, 0, 0)
-            + "<texture_location></texture_location></material></materials></scene>"
-        )
-    return xml
+    objects = [(obj, 0, (0.3 * i, y, 2.0 + 0.4 * i), (1, 1, 1))
+               for i, y in enumerate(QUAD_HEIGHTS)]
+    return write_scene_xml(directory, "flat_quads", assets, objects)
 
 
 def in_plane_rays(n: int, seed: int):

@@ -14,9 +14,17 @@ within it.
 Inputs: per accelerator (binary BVH, grid, KD tree, wide BVH) the 921,600
 primary rays, the live bounce rays after the first hit in the path
 tracer's launch order, and the any-hit arguments of a Whitted host-route
-frame at level 0; for the binary BVH also the wavefront kernel (k = 1) on
-the primary rays and the Whitted level kernel at level 0.  Closest and any
-hit run on each ray set (any hit with the closest hit's t0).  Per call:
+frame at level 0; for the binary BVH also the wavefront kernel on the
+primary rays at k = 1 and at k = 6 (every depth on all 921,600 rays), and
+the Whitted level kernel at levels 0 and 1 of a frame.  Closest and any
+hit run on each ray set (any hit with the closest hit's t0).  Where the
+checkout has it, the fused kernels also run in the camera's lane order
+(`core/camera.lane_order`, 8x4 pixel tiles per warp) beside pixel order
+(the Whitted kernel at level 0, the children of level 1 having no such
+order); and the link walk and the stack walk run on hand-built BVHs of
+140 and 100 levels (`scene/synthetic.caterpillar`, 921,600 rays of the
+default camera), which a checkout that refuses them reports as refused.
+Per call:
 the median over 5 rounds of the mean ms of 20 launches after a warm-up
 (CUDA events around the wrapper calls, `ms`), the walk kernel's own mean
 device time over 20 launches (`torch.profiler`, `device_ms`),
@@ -47,7 +55,9 @@ WALK_KERNELS = ("closest_hit_kernel", "occluded_kernel", "closest_hit_links_kern
 
 def ptxas_table(log: str) -> dict:
     """{kernel: {registers, stack, spill_stores, spill_loads}} of the walk
-    kernels from nvcc's `-Xptxas -v` output."""
+    kernels from nvcc's `-Xptxas -v` output; a template instance is named
+    with its bool arguments (`wavefront_kernel<0,1>`: LINKS false, CODES
+    true)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
@@ -55,6 +65,10 @@ def ptxas_table(log: str) -> dict:
         if entry:
             found = [k for k in WALK_KERNELS if k in entry.group(1)]
             name = max(found, key=len) if found else None
+            # a template instance: its bool arguments from the mangled name
+            inst = name and re.search(name + r"I((?:Lb[01]E)+)E", entry.group(1))
+            if inst:
+                name += "<" + ",".join(re.findall(r"Lb([01])E", inst.group(1))) + ">"
             continue
         if name is None:
             continue
@@ -174,6 +188,66 @@ def main() -> int:
              "wide": (dict(wide=True), wide_bvh.closest_hit_wide, wide_bvh.occluded_wide,
                       "occluded_wide")}
     rows = []
+    perm = cam_mod.lane_order(camera, dev) if hasattr(cam_mod, "lane_order") else None
+
+    def fused(kernel, fn, label, n, **extra):
+        got = fn()
+        add(walk="bvh", kernel=kernel, input=label, rays=n, ms=time_ms(fn),
+            device_ms=device_ms(fn), steps=float(got["traversed"].float().mean()),
+            tests=float(got["tested"].float().mean()), **extra)
+
+    def fused_rows(sc):
+        """The wavefront kernel (k = 1, k = 6) and the Whitted level kernel
+        (levels 0 and 1) in pixel order, and in the lane order where the
+        checkout has it."""
+        n = o.shape[0]
+        orders = [("", {})] + ([(", lane order", dict(perm=perm))] if perm is not None else [])
+        for k in (1, 6):
+            for olabel, okw in orders:
+                def fn(k=k, okw=okw):
+                    return wavefront_pt.trace(sc, o, d, seeds, k, DEPTH, **okw)
+                fused("wavefront_pt", fn, f"k={k} all rays{olabel}", n,
+                      live=fn()["live_counts"].tolist())
+        calls = recorded(whitted_wf, "trace_level0",
+                         lambda: whitted.render(sc, camera, DEPTH, True))
+        for level in (0, 1):
+            a, kw = calls[level]
+            kw = {key: v for key, v in kw.items() if key != "perm"}
+            for olabel, okw in orders if level == 0 else orders[:1]:
+                def fn(a=a, kw=kw, okw=okw):
+                    return whitted_wf.trace_level0(*a, **kw, **okw)
+                fused("whitted_wf", fn, f"level {level}{olabel}", a[1].shape[0],
+                      vis=int(fn()["vis"].sum()))
+
+    def deep_rows():
+        """The link walk on a 140-level BVH and the stack walk on a 100-level
+        one (more than 64 stack entries), closest and any hit."""
+        try:
+            from cpu_ray_tracer_tpu_torch.scene import synthetic
+        except ImportError:
+            print(f"{args.label} deep trees: refused (the checkout has no such scenes)")
+            return
+        base, _ = compile_scene(os.path.join(HERE, "assets", "scenes", "cube_scene.xml"),
+                                device="cpu")
+        cam = cam_mod.make_camera(WIDTH, HEIGHT)
+        for levels in (140, 100):
+            sc = synthetic.scene_over(base, synthetic.caterpillar(levels)).to(dev)
+            co, cd, _ = pathtracer.camera_rays(cam, 1, dev)
+            ct0, _ = intersect.primitive_hits(sc, co, cd)
+            mask = torch.ones(co.shape[0], dtype=torch.bool, device=dev)
+            closest = query.triangle_hit
+            got = closest(sc, co, cd, ct0, mask)
+            label = f"deep {levels} ({sc.walk})"
+            add(walk=label, kernel=f"closest ({sc.walk})", input="primary", rays=co.shape[0],
+                ms=time_ms(lambda: closest(sc, co, cd, ct0, mask)),
+                device_ms=device_ms(lambda: closest(sc, co, cd, ct0, mask)),
+                steps=float(got["traversed"].float().mean()),
+                tests=float(got["tested"].float().mean()))
+            anyhit = query.triangle_occluded
+            add(walk=label, kernel=f"any ({sc.walk})", input="primary", rays=co.shape[0],
+                ms=time_ms(lambda: anyhit(sc, co, cd, ct0, mask)),
+                device_ms=device_ms(lambda: anyhit(sc, co, cd, ct0, mask)),
+                occluded=int(anyhit(sc, co, cd, ct0, mask).sum()))
 
     def add(**row):
         rows.append(row)
@@ -199,22 +273,10 @@ def main() -> int:
             ms=time_ms(lambda: anyhit(*a, **kw)),
             device_ms=device_ms(lambda: anyhit(*a, **kw)), occluded=int(anyhit(*a, **kw).sum()))
         if acc == "bvh":
-            got = wavefront_pt.trace(sc, o, d, seeds, 1, DEPTH)
-            add(walk=acc, kernel="wavefront_pt", input="k=1 primary", rays=o.shape[0],
-                ms=time_ms(lambda: wavefront_pt.trace(sc, o, d, seeds, 1, DEPTH)),
-                device_ms=device_ms(lambda: wavefront_pt.trace(sc, o, d, seeds, 1, DEPTH)),
-                steps=float(got["traversed"].float().mean()),
-                tests=float(got["tested"].float().mean()))
-            a, kw = recorded(whitted_wf, "trace_level0",
-                             lambda: whitted.render(sc, camera, DEPTH, True))[0]
-            got = whitted_wf.trace_level0(*a, **kw)
-            add(walk=acc, kernel="whitted_wf", input="level 0", rays=a[1].shape[0],
-                ms=time_ms(lambda: whitted_wf.trace_level0(*a, **kw)),
-                device_ms=device_ms(lambda: whitted_wf.trace_level0(*a, **kw)),
-                steps=float(got["traversed"].float().mean()),
-                tests=float(got["tested"].float().mean()))
+            fused_rows(sc)
         del sc
         torch.cuda.empty_cache()
+    deep_rows()
     result = dict(label=args.label, repo=os.path.relpath(repo, HERE), card=card,
                   device=torch.cuda.get_device_name(0), ptxas=ptxas,
                   build_seconds=lib.build_seconds, rows=rows)
