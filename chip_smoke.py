@@ -44,10 +44,12 @@ The accelerator interchange, on the same scene and camera:
 3b. the link walk (closest and any hit) on the `grid` and `kdtree` cell
     forests and the wide walk on the `wide=True` BVH, each against its
     plain version on the card: closest and any hit on the primary rays and
-    on the live bounce rays after the first hit, and the any hit on the
-    arguments of a Whitted host-route frame at levels 0 and 1 (recorded),
-    which stand in the kernels line; integers exact, floats
-    within 1e-6 relative; times of both;
+    on the live bounce rays after the first hit (the wide walk also on the
+    primary rays in the camera's lane order, its `perm`), and the any hit
+    on the arguments of a Whitted host-route frame at levels 0 and 1
+    (recorded; level 0 in the lane order), which stand in the kernels
+    line; integers exact (steps and tests included), floats within 1e-6
+    relative; steps and tests per ray; times of both;
 4b. the path tracer at 1280x720, depth 5, for `grid`, `kdtree` and
     `wide=True` at `wavefront_depths=0` and for `wide="bounce"` at its
     default, beside the binary BVH at `wavefront_depths=0` as the
@@ -67,9 +69,11 @@ Scenes past the walk records' old limits (`scene/synthetic.py`):
     branch of the wavefront and Whitted kernels), one of 100 levels (the
     stack walk with more than 64 entries), a leaf of 600 triangles (a
     hand-built BVH, the grid and the KD tree) and 70 cube instances whose
-    object ids pass the meta word (the slot table): every kernel each
-    scene's renders launch against its plain version on the 921,600 rays
-    of the default camera (closest and any hit; the wavefront kernel at
+    object ids pass the meta word (the slot table), and the two BVHs, the
+    big leaf's BVH and the cubes collapsed into 8-wide nodes (the wide
+    walk): every kernel each scene's renders launch against its plain
+    version on the 921,600 rays of the default camera (closest and any
+    hit, the wide walk also in the lane order; the wavefront kernel at
     k = 2 and the Whitted level in the lane order where the scene takes
     them), then a 64x40 path-tracer pass and Whitted frame on the card
     against the CPU, which must launch those kernels.
@@ -82,7 +86,9 @@ The TPU probes, on their own inputs (`cpu_ray_tracer_tpu_torch/benchmarks/`):
    the 64 tiles, within 1e-5 relative but for rays the float64 evaluation
    explains (`leaf_tolerance.disagreements`; their count is printed);
    times of both and, beside K7, of `torch.matmul` on the same product in
-   float32 (product only); then one drive of `mxu_probe.main`;
+   float32 (product only); the SASS of every `mxu_leaf_kernel<m>` holds
+   `HGMMA` (K7 runs on `wgmma`, `cuobjdump`); then one drive of
+   `mxu_probe.main`;
 8. the node-step probe: K8 for all ten variants on the 921,600 camera rays
    of `bunny_teapot`'s TLAS tables, equal to its plain version; times; the
    SASS of each variant holds its block-wide reductions (`cuobjdump`);
@@ -215,9 +221,10 @@ def bound(inputs: list, tables: list, got, counters: dict, slabs: int, n: int) -
     return dict(roofline(nbytes(*inputs, *tables, *outs), 1e3 * ops / F32_OPS_PER_S), ops=ops)
 
 
-def sass_counts(path: str) -> dict:
-    """Per instantiation V of `sync_probe_kernel<V>` in the library: counts
-    of the SASS instructions that block-wide reductions compile to."""
+def sass_counts(path: str, kernel: str, ops) -> dict:
+    """Per instantiation of the templated `kernel` in the library (its
+    template arguments as they are mangled, `ILi128EE` -> "128"): counts of
+    the SASS instructions `ops`."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -226,12 +233,12 @@ def sass_counts(path: str) -> dict:
     counts, v = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"sync_probe_kernelILi(\d+)EE", line)
-            v = int(found.group(1)) if found else None
+            found = re.search(kernel + r"I((?:Li\d+E)+)E", line)
+            v = ",".join(re.findall(r"Li(\d+)E", found.group(1))) if found else None
             if v is not None:
                 counts[v] = {}
         elif v is not None:
-            for op in ("BAR.RED", "REDUX", "BAR.SYNC"):
+            for op in ops:
                 if op in line:
                     counts[v][op] = counts[v].get(op, 0) + 1
     return counts
@@ -490,6 +497,10 @@ def main() -> int:
         oc, oc_plain = getattr(mod, ko), getattr(mod, f"{ko}_plain")
         at0, _ = intersect.primitive_hits(sc, o, d)
         ray_sets = (("primary", (sc, o, d, at0, everyone)), ("bounce", bounce_rays(sc)))
+        if sc.walk == "wide":
+            # the primary rays in the camera's lane order, as the host
+            # routes pass it at depth 0 / level 0 (`perm`)
+            ray_sets += (("primary, lane order", (sc, o, d, at0, everyone, lanes)),)
         for label, a in ray_sets:
             r = compare(kc, f"{acc} {label}", lambda a=a: ch(*a), lambda a=a: ch_plain(*a),
                         a[1].shape[0], work_of(a, names, slabs))
@@ -530,6 +541,15 @@ def main() -> int:
         "big leaf grid": compile_scene(big_xml, device="cpu", accel="grid")[0],
         "big leaf kdtree": compile_scene(big_xml, device="cpu", accel="kdtree")[0],
         "cubes70": compile_scene(synthetic.cubes_xml(limit_dir, assets), device="cpu")[0],
+        # the same scenes collapsed into 8-wide nodes: the wide walk past
+        # 64 stack entries (24 and 34 node ids), a leaf past the count
+        # field (the open leaf form) and the slot table
+        "deep 140 wide": synthetic.scene_over(base_cpu, synthetic.caterpillar(140), wide=True),
+        "deep 100 wide": synthetic.scene_over(base_cpu, synthetic.caterpillar(100), wide=True),
+        "big leaf wide": synthetic.scene_over(compile_scene(big_xml, device="cpu")[0],
+                                              synthetic.big_leaf_bvh(), wide=True),
+        "cubes70 wide": compile_scene(synthetic.cubes_xml(limit_dir, assets), device="cpu",
+                                      wide=True)[0],
     }
     lcam, lsmall = cam_mod.make_camera(WIDTH, HEIGHT), cam_mod.make_camera(64, 40)
     lo, ld, ls = pathtracer.camera_rays(lcam, 1, dev)
@@ -538,22 +558,31 @@ def main() -> int:
         sc = copy.deepcopy(sc_cpu).to(dev)
         lt0, _ = intersect.primitive_hits(sc, lo, ld)
         a = (sc, lo, ld, lt0, everyone)
-        mod, suffix = (link_walk, "_links") if sc.walk == "links" else (stack_walk, "")
+        mod, suffix = dict(links=(link_walk, "_links"), wide=(wide_bvh, "_wide")).get(
+            sc.walk, (stack_walk, ""))
         walk_keys = (f"closest_hit{suffix}", f"occluded{suffix}")
         print(f"scene {label}: walk {sc.walk}, stack walk {sc.stack_walk}, fused kernels "
               f"{sc.stack_kernels}, depth {sc.depth}, nodes {sc.nodes.shape[0]}, slots "
               f"{sc.tris.shape[0]}, largest leaf {int(sc.nodes[:, 7].max())}, slot table "
-              f"{sc.slot_ids is not None}")
-        r = compare(walk_keys[0], f"{label} primary", lambda a=a: getattr(mod, walk_keys[0])(*a),
-                    lambda a=a: getattr(mod, f"{walk_keys[0]}_plain")(*a), n)
-        print(f"  mean steps {float(r['got']['traversed'].float().mean()):.3f}, tests "
-              f"{float(r['got']['tested'].float().mean()):.3f}, hits "
-              f"{int((r['got']['slot'] >= 0).sum())}, largest object id "
-              f"{int(r['got']['obj_id'].max())}")
-        keep(walk_keys[0], r)
-        r = compare(walk_keys[1], f"{label} primary", lambda a=a: getattr(mod, walk_keys[1])(*a),
-                    lambda a=a: getattr(mod, f"{walk_keys[1]}_plain")(*a), n)
-        keep(walk_keys[1], r)
+              f"{sc.slot_ids is not None}, wide nodes "
+              f"{0 if sc.wide_nodes is None else sc.wide_nodes.shape[0]}, wide stack "
+              f"{sc.wide_stack}")
+        walk_args = [("primary", a)]
+        if sc.walk == "wide":  # and in the camera's lane order, as the host routes pass it
+            walk_args.append(("primary, lane order", (*a, llanes)))
+        for rays_label, wa in walk_args:
+            r = compare(walk_keys[0], f"{label} {rays_label}",
+                        lambda wa=wa: getattr(mod, walk_keys[0])(*wa),
+                        lambda wa=wa: getattr(mod, f"{walk_keys[0]}_plain")(*wa), n)
+            print(f"  mean steps {float(r['got']['traversed'].float().mean()):.3f}, tests "
+                  f"{float(r['got']['tested'].float().mean()):.3f}, hits "
+                  f"{int((r['got']['slot'] >= 0).sum())}, largest object id "
+                  f"{int(r['got']['obj_id'].max())}")
+            keep(walk_keys[0], r)
+            r = compare(walk_keys[1], f"{label} {rays_label}",
+                        lambda wa=wa: getattr(mod, walk_keys[1])(*wa),
+                        lambda wa=wa: getattr(mod, f"{walk_keys[1]}_plain")(*wa), n)
+            keep(walk_keys[1], r)
         expected_pass, expected_frame = [walk_keys[0]], [walk_keys[0], walk_keys[1]]
         if sc.stack_kernels:
             keep("wavefront_pt", compare(
@@ -900,6 +929,15 @@ def main() -> int:
                                  f"borderline, e.g. {bad[:8].tolist()}")
         probes.append((f"mxu_leaf m={m}", "leaf_probe.cu", "benchmarks/mxu_probe.py:193",
                        dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, product_only_ms=mm_ms, **b)))
+    # K7 runs on wgmma: every instance of mxu_leaf_kernel<m> holds HGMMA
+    hgmma = sass_counts(k.path, "mxu_leaf_kernel", ("HGMMA",))
+    print(f"  SASS mxu_leaf_kernel<m>: {hgmma}")
+    for m in leaf_probe.WIDTHS:
+        if not any(key.split(",")[0] == str(m) for key in hgmma):
+            raise AssertionError(f"mxu_leaf m={m}: no mxu_leaf_kernel<{m}> in the library")
+    for key, have in hgmma.items():
+        if have.get("HGMMA", 0) == 0:
+            raise AssertionError(f"mxu_leaf_kernel<{key}>: no HGMMA in its SASS")
     leaf_probe.vpu_leaf.launches = 0
     leaf_probe.mxu_leaf.launches = dict.fromkeys(leaf_probe.WIDTHS, 0)
     mxu_probe.main(dev)
@@ -929,9 +967,9 @@ def main() -> int:
               f"by {b['bound_by']}, share {b['bound_ms'] / ms:.4f}")
         probes.append((f"node_walk {variant}", "sync_probe.cu", "benchmarks/sync_probe.py:281",
                        dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)))
-    counts = sass_counts(k.path)
+    counts = sass_counts(k.path, "sync_probe_kernel", ("BAR.RED", "REDUX", "BAR.SYNC"))
     for i, variant in enumerate(sync_probe.VARIANTS):
-        have = counts.get(i, {})
+        have = counts.get(str(i), {})
         print(f"  SASS sync_probe_kernel<{variant}>: {have}")
         for op, need in SYNC_SASS.get(variant, {}).items():
             if have.get(op, 0) < need:
@@ -963,7 +1001,8 @@ def main() -> int:
     main_launches = {key: dict(per_pass=default_pass.get(key, 0) / PASSES,
                                per_frame=default_frame.get(key, 0) / FRAMES) for key in kernels}
     redesigned = dict(closest_hit=5, occluded=5, closest_hit_links=5, occluded_links=5,
-                      wavefront_pt=6, whitted_wf=6)
+                      wavefront_pt=6, whitted_wf=6, closest_hit_wide=7, occluded_wide=7,
+                      **{f"mxu_leaf m={m}": 7 for m in leaf_probe.WIDTHS})
     entries = [dict(name=key, source=src, replaces=f"cpu_ray_tracer_tpu/{tpu}",
                     launches=launches[key], main=main_launches[key], result=res[key])
                for key, (src, tpu) in sources.items()]

@@ -22,6 +22,17 @@ The JAX package regroups each wide node's leaf triangles into contiguous
 8-triangle rows for its union-row loop (wide_bvh.py:141-152); a thread
 here tests each leaf it hits on its own, so the binary slots serve as
 they are.
+
+`nodes` is the table that compares one to one with the JAX package's;
+the CUDA walk reads `records` (`wide_records`), the same words laid out
+for 16-byte loads: the boxes field-major, word 8f + k holding field f
+(bmin xyz, bmax xyz) of child k, so that 12 `float4` loads carry the 8
+boxes, 4 children each; words 48-63 as in `nodes` (2 `int4` of child
+words, then the 8 order words).  The walk keeps the pending interior
+children of a step as node ids on a per-thread stack, pushed far to
+near, so that a pop is one stack read and never returns to the parent's
+record; `stack` is the most such a tree can hold at once (`stack_need`),
+checked against `WIDE_STACK_CAP` at pack time.
 """
 
 from __future__ import annotations
@@ -37,16 +48,21 @@ WIDE_WORDS = 64
 W_CHILD = 48
 W_ORDER = 56
 # per-thread stack capacity of the wide walk (`csrc/ptraverse.cuh`
-# WIDE_STACK_CAP): a stack word (node << 8 | pending children) per level of
-# the wide tree, plus the forest's extra roots
-WIDE_STACK_CAP = 32
+# WIDE_STACK_CAP), in node ids: up to 7 pending children per level of
+# the wide tree, plus the forest's extra roots; every tree of up to 32
+# levels fits it
+WIDE_STACK_CAP = 256
+# wide_records: word 8f + k is box field f of child k
+W_FIELDS = 6
 
 
 @dataclasses.dataclass
 class PackedWide:
     nodes: np.ndarray  # int32 [W, WIDE_WORDS]
+    records: np.ndarray  # int32 [W, WIDE_WORDS]: `wide_records(nodes)`
     roots: tuple  # wide roots in walk order
     depth: int  # wide-tree depth, root level = 1
+    stack: int  # most node ids on the walk's stack at once, one root
 
 
 def collapse_wide(left, right, tri_count, node_min, node_max, root: int, width: int = WIDE):
@@ -99,6 +115,32 @@ def octant_order(centers: np.ndarray, octant: int) -> np.ndarray:
     return np.argsort(centers @ sign, kind="stable")
 
 
+def wide_records(nodes: np.ndarray) -> np.ndarray:
+    """The CUDA walk's records of wide nodes `nodes` [W, WIDE_WORDS]
+    (module docstring): word 8f + k of a record is word 6k + f of the node
+    (box field f of child k); words 48-63 are the node's."""
+    rec = nodes.copy()
+    boxes = nodes[:, : W_FIELDS * WIDE].reshape(-1, WIDE, W_FIELDS)
+    rec[:, : W_FIELDS * WIDE] = boxes.transpose(0, 2, 1).reshape(-1, W_FIELDS * WIDE)
+    return rec
+
+
+def stack_need(nodes: np.ndarray, root: int = 0) -> int:
+    """The most node ids the walk's stack holds at once below `root`: a
+    step over a node with c interior children pushes c - 1 of them and
+    enters the last, so the need of a node is c - 1 plus the largest need
+    of its interior children (0 for a node without any)."""
+    child = nodes[:, W_CHILD : W_CHILD + WIDE]
+    need = np.zeros(nodes.shape[0], np.int64)
+    # children have larger indices than their parent (collapse_wide's
+    # breadth-first numbering), so one pass from the last node up
+    for w in range(nodes.shape[0] - 1, -1, -1):
+        kids = child[w][child[w] > 0]
+        if kids.size:
+            need[w] = kids.size - 1 + need[kids].max()
+    return int(need[root])
+
+
 def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, count,
               codes: bool) -> PackedWide:
     """Collapse and pack a binary host BVH (the fused TLAS forest has one
@@ -108,8 +150,6 @@ def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, coun
     wide, depth = collapse_wide(left, right, tri_count, node_min, node_max, root)
     w = len(wide)
     roots = (0,)
-    if depth + len(roots) - 1 > WIDE_STACK_CAP:
-        raise ValueError(f"wide depth {depth} exceeds the walk's stack capacity {WIDE_STACK_CAP}")
     nodes = np.zeros((w, WIDE_WORDS), np.int32)
     boxes = np.full((w, 6 * WIDE), np.nan, np.float32)
     for wi, kids in enumerate(wide):
@@ -131,4 +171,15 @@ def pack_wide(node_min, node_max, left, right, tri_count, root: int, first, coun
             nodes[wi, W_ORDER + o] = sum(
                 int(s) << (3 * r) for r, s in enumerate(octant_order(centers, o)))
     nodes[:, : 6 * WIDE] = boxes.view(np.int32)
-    return PackedWide(nodes=nodes, roots=roots, depth=depth)
+    stack = stack_need(nodes)
+    check_stack(stack, len(roots))
+    return PackedWide(nodes=nodes, records=wide_records(nodes), roots=roots, depth=depth,
+                      stack=stack)
+
+
+def check_stack(stack: int, n_roots: int) -> None:
+    """Raise where a walk from `n_roots` roots over a tree of stack need
+    `stack` could push past WIDE_STACK_CAP (the kernel does not check)."""
+    if stack + n_roots - 1 > WIDE_STACK_CAP:
+        raise ValueError(f"the wide walk's stack would hold {stack + n_roots - 1} node ids, "
+                         f"past its capacity {WIDE_STACK_CAP}")

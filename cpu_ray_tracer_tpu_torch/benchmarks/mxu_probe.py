@@ -1,5 +1,5 @@
 """Leaf-test probe: should a Moller-Trumbore leaf test run on the tensor
-cores (K7, `mma.sync` TF32) or once per thread on the CUDA cores (K6)?
+cores (K7, `wgmma` TF32) or once per thread on the CUDA cores (K6)?
 
 The port of the JAX package's `benchmarks/mxu_probe.py:151-214`, on the
 kernels of `ops/leaf_probe.py`, with the same inputs: drawn from
@@ -39,8 +39,8 @@ ROWS = 64  # rows of 8 triangles: the VPU variant's flushes
 def inputs(tiles: int = N_TILES, device=device_mod.DEFAULT) -> dict:
     """The probe's inputs, drawn in the JAX probe's order: tris [64, 128],
     the six ray components [tiles, 32, 128], and per m C [16m, 16] and Phi
-    [tiles, 16, 4096]; `packed` holds each C in K7's row order
-    (`leaf_probe.pack_c`), made once here so that no timed call pays it."""
+    [tiles, 16, 4096]; `packed` holds each (C, Phi) in K7's layouts
+    (`leaf_probe.pack`), made once here so that no timed call pays it."""
     dev = device_mod.resolve(device)
     rng = np.random.default_rng(0)
 
@@ -50,7 +50,7 @@ def inputs(tiles: int = N_TILES, device=device_mod.DEFAULT) -> dict:
     tris = draw(ROWS, 128)
     comps = [draw(tiles, *TS) for _ in range(6)]
     per_m = {m: (draw(16 * m, 16), draw(tiles, 16, leaf_probe.TILE)) for m in leaf_probe.WIDTHS}
-    packed = {m: leaf_probe.pack_c(c_tab, m).contiguous() for m, (c_tab, _) in per_m.items()}
+    packed = {m: leaf_probe.pack(c_tab, phi, m) for m, (c_tab, phi) in per_m.items()}
     return dict(tris=tris, comps=comps, per_m=per_m, packed=packed)
 
 

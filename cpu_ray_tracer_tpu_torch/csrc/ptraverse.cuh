@@ -53,6 +53,10 @@
 //     record, one sector, holds the box, the hit link or ~code and the miss
 //     link, so the next node comes out of the record just visited and a ray
 //     stays in its octant's slice (184 KB on the main path's grid);
+//   * `wide_step` reads `wide_records` (accel/wide.py): one 256-byte
+//     record per wide node, its 8 boxes field-major in 12 16-byte loads,
+//     its child words in 2, and the octant's order word, all independent
+//     (six scalar loads per box took 1.3x as long; PERF.md);
 //   * the leaf tests read `tris4`: a triangle is three 16-byte loads of
 //     v0, e1, e2 padded to four floats.
 // A leaf's code takes one of two forms, the same for every leaf of a
@@ -87,10 +91,9 @@ constexpr int RECORD_INT4 = 4;  // accel/pack.py node_records: 16 words
 constexpr int LINK_RECORD_INT4 = 2;  // accel/pack.py link_records: 8 words
 constexpr int TRI_FLOAT4 = 3;  // accel/pack.py tris4: 12 floats
 constexpr int WIDE = 8;  // accel/wide.py: children per wide node
-constexpr int WIDE_WORDS = 64;
-constexpr int W_CHILD = 48;
+constexpr int WIDE_RECORD_INT4 = 16;  // accel/wide.py wide_records: 64 words
 constexpr int W_ORDER = 56;
-constexpr int WIDE_STACK_CAP = 32;  // accel/wide.py WIDE_STACK_CAP (asserted at pack time)
+constexpr int WIDE_STACK_CAP = 256;  // accel/wide.py WIDE_STACK_CAP (checked at pack time)
 constexpr float TRI_EPS = 1e-4f;
 constexpr float RAY_FAR = 1e34f;
 
@@ -135,12 +138,6 @@ __device__ __forceinline__ bool slab_box(float bminx, float bminy, float bminz, 
   const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
   const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
   return !nan && tmax >= tmin && tmin < t && tmax > 0.0f;
-}
-
-// The slab test of a box stored as six floats (the wide records).
-__device__ __forceinline__ bool slab(const float* rec, const Ray& r, float t) {
-  return slab_box(__ldg(rec + 0), __ldg(rec + 1), __ldg(rec + 2), __ldg(rec + 3),
-                  __ldg(rec + 4), __ldg(rec + 5), r, t);
 }
 
 __device__ __forceinline__ float f32(int w) { return __int_as_float(w); }
@@ -320,82 +317,115 @@ __device__ __forceinline__ void walk_links(const int4* __restrict__ link_records
   }
 }
 
-// The child slot of `bits` that comes first in order word `ow` (rank k at
-// bits 3k .. 3k + 2), or -1 where `bits` is 0.
-__device__ __forceinline__ int nearest_child(int bits, int ow) {
-  for (int rank = 0; rank < WIDE; ++rank) {
-    const int s = (ow >> (3 * rank)) & 7;
-    if ((bits >> s) & 1) return s;
-  }
-  return -1;
+// Lane c of a 16-byte vector (c a compile-time constant after unrolling,
+// else a select).
+__device__ __forceinline__ float lane4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int lane4(const int4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// The 8-wide walk (accel/wide.py), as the TPU's `_kernel`
-// (cpu_ray_tracer_tpu/ops/pallas/wide_bvh.py:54) walks it, per ray and with
-// the ray's own octant.  A step takes one wide node: it slab-tests the 8
+// A walk's start: the stack holds the forest's other roots, the first
+// root is the node to step on.
+__device__ __forceinline__ int wide_start(const int* __restrict__ roots, int n_roots,
+                                          int (&stack)[WIDE_STACK_CAP], int& sp) {
+  sp = 0;
+  for (int i = n_roots - 1; i >= 1; --i) stack[sp++] = __ldg(roots + i);
+  return __ldg(roots);
+}
+
+// One step of the 8-wide walk (accel/wide.py), as the TPU's `_kernel`
+// (cpu_ray_tracer_tpu/ops/pallas/wide_bvh.py:54) takes it, per ray and
+// with the ray's own octant `oct`: at wide node `cur` it slab-tests the 8
 // child boxes against the current t (an empty slot's NaN box fails), then
-// tests each hit leaf child's slots [first, first + count) of the binary
-// pack in child order, then goes to the nearest hit interior child under
-// the node's order word for the octant.  The other hit interior children
-// stay behind in one stack word `node << 8 | pending mask` (the TPU
-// kernel's word, wide_bvh.py:202-251); with no interior child hit, the top
-// word gives up its nearest pending child (mask 0: a forest root to enter
-// itself).  So the stack holds at most one word per level of the wide tree
-// and one per extra root, which accel/wide.py checks against
-// WIDE_STACK_CAP at pack time.  `traversed` counts wide-node steps.
+// tests each hit leaf child's slots in child order, then goes to the
+// nearest hit interior child under the node's order word for the octant;
+// with no interior child hit it pops the nearest pending one.  Returns
+// the next node, or -1 where the walk has ended (the stack is empty, or
+// with ANY_HIT a triangle was accepted).  `traversed` counts steps.
+//
+// The step reads one record of `wide_records` (accel/wide.py): 12 float4
+// loads of the boxes (word 8f + k: field f of child k), 2 int4 loads of
+// the child words and the octant's order word, all independent, through
+// the read-only path.  The slab arithmetic per child is `slab_box`'s.
+// The other hit interior children go on the stack as node ids, far to
+// near, so that later pops return them nearest first: the pop order of
+// the TPU kernel's stack word `node << 8 | pending mask`
+// (wide_bvh.py:202-251), whose pop went back to the parent's record for
+// its order and child words, two dependent loads (PERF.md: 0.93-0.95 of
+// that pop's time).
 template <bool ANY_HIT, bool CODES>
-__device__ __forceinline__ void walk_wide(const int* __restrict__ wnodes,
+__device__ __forceinline__ int wide_step(const int4* __restrict__ records,
+                                         const float4* __restrict__ tris4, int cur, int oct,
+                                         const Ray& r, Hit& h, int (&stack)[WIDE_STACK_CAP],
+                                         int& sp) {
+  ++h.traversed;
+  const int4* rec = records + (size_t)cur * WIDE_RECORD_INT4;
+  const float4* box = reinterpret_cast<const float4*>(rec);
+  float4 b[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) b[j] = __ldg(box + j);
+  const int4 ca = __ldg(rec + 12), cb = __ldg(rec + 13);
+  const int ow = __ldg(reinterpret_cast<const int*>(rec) + W_ORDER + oct);
+  // a child word: 0 empty, > 0 an interior child, ~code a leaf
+  int hitbits = 0, leafbits = 0, intbits = 0;
+#pragma unroll
+  for (int k = 0; k < WIDE; ++k) {
+    const int g = k >> 2, c = k & 3;
+    if (slab_box(lane4(b[g], c), lane4(b[2 + g], c), lane4(b[4 + g], c), lane4(b[6 + g], c),
+                 lane4(b[8 + g], c), lane4(b[10 + g], c), r, h.t)) {
+      hitbits |= 1 << k;
+    }
+    const int cw = lane4(g == 0 ? ca : cb, c);
+    leafbits |= (cw < 0 ? 1 : 0) << k;
+    intbits |= (cw > 0 ? 1 : 0) << k;
+  }
+  for (int lbits = hitbits & leafbits; lbits != 0; lbits &= lbits - 1) {
+    const int k = __ffs(lbits) - 1;
+    if (leaf_code_tests<ANY_HIT, CODES>(tris4, ~lane4(k < 4 ? ca : cb, k & 3), r, h)) return -1;
+  }
+  int bits = hitbits & intbits;
+  const int n_int = __popc(bits);
+  if (n_int == 0) return sp > 0 ? stack[--sp] : -1;
+  // the hit interior children in near-to-far order: the nearest is the
+  // next node, the j-th goes to entry top - j; the pack guarantees room
+  // (accel/wide.py stack_need), a debug build checks it
+  const int top = sp + n_int - 1;
+#if defined(CRT_DEBUG) || defined(__CUDACC_DEBUG__)
+  if (top > WIDE_STACK_CAP) __trap();
+#endif
+  int next = -1, j = 0;
+#pragma unroll
+  for (int rank = 0; rank < WIDE; ++rank) {
+    const int s = (ow >> (3 * rank)) & 7;
+    if ((bits >> s) & 1) {
+      bits &= ~(1 << s);
+      const int c = lane4(s < 4 ? ca : cb, s & 3);
+      if (j == 0) {
+        next = c;
+      } else {
+        stack[top - j] = c;
+      }
+      ++j;
+    }
+  }
+  sp = top;
+  return next;
+}
+
+// The whole 8-wide walk of one ray from the forest's roots, updating `h`
+// (which starts as no_hit(t0)).
+template <bool ANY_HIT, bool CODES>
+__device__ __forceinline__ void walk_wide(const int4* __restrict__ records,
                                           const int* __restrict__ roots, int n_roots,
                                           const float4* __restrict__ tris4, const Ray& r,
                                           Hit& h) {
-  const float* fw = reinterpret_cast<const float*>(wnodes);
-  const int oct = octant(r);
   int stack[WIDE_STACK_CAP];
-  int sp = 0;
-  for (int i = n_roots - 1; i >= 1; --i) stack[sp++] = __ldg(roots + i) << 8;
-  int cur = __ldg(roots);
-  while (cur >= 0) {
-    ++h.traversed;
-    const int* rec = wnodes + (size_t)cur * WIDE_WORDS;
-    int hitbits = 0;
-    for (int k = 0; k < WIDE; ++k) {
-      if (slab(fw + (size_t)cur * WIDE_WORDS + 6 * k, r, h.t)) hitbits |= 1 << k;
-    }
-    int ibits = 0;
-    for (int k = 0; k < WIDE; ++k) {
-      if (!((hitbits >> k) & 1)) continue;
-      // a child word: 0 empty, > 0 an interior child, ~code a leaf
-      const int c = __ldg(rec + W_CHILD + k);
-      if (c < 0) {
-        if (leaf_code_tests<ANY_HIT, CODES>(tris4, ~c, r, h)) return;
-      } else if (c > 0) {
-        ibits |= 1 << k;
-      }
-    }
-    const int sel = nearest_child(ibits, __ldg(rec + W_ORDER + oct));
-    if (sel >= 0) {
-      const int rest = ibits & ~(1 << sel);
-      if (rest != 0) stack[sp++] = (cur << 8) | rest;
-      cur = __ldg(rec + W_CHILD + sel);
-    } else if (sp > 0) {
-      const int p = stack[sp - 1] >> 8, pm = stack[sp - 1] & 0xFF;
-      if (pm == 0) {
-        cur = p;
-        --sp;
-      } else {
-        const int* prec = wnodes + (size_t)p * WIDE_WORDS;
-        const int s = nearest_child(pm, __ldg(prec + W_ORDER + oct));
-        cur = __ldg(prec + W_CHILD + s);
-        const int left = pm & ~(1 << s);
-        if (left != 0) {
-          stack[sp - 1] = (p << 8) | left;
-        } else {
-          --sp;
-        }
-      }
-    } else {
-      cur = -1;
-    }
+  int sp;
+  const int oct = octant(r);
+  for (int cur = wide_start(roots, n_roots, stack, sp); cur >= 0;) {
+    cur = wide_step<ANY_HIT, CODES>(records, tris4, cur, oct, r, h, stack, sp);
   }
 }
 

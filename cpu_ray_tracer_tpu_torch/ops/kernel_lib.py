@@ -64,14 +64,16 @@ _SIGNATURES = {
     ],
     "crt_closest_hit_wide": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int, _ptr, _ptr, _ptr, _int,  # wide nodes, wide roots, n_roots, tris4,
+        _ptr, _ptr, _int, _ptr, _ptr, _ptr, _int,  # wide records, wide roots, n_roots, tris4,
         #                                            shade, slot ids, leaf code form
+        _ptr,  # perm
         *[_ptr] * 9,  # t, u, v, slot, tri, obj, mat, traversed, tested
         _ptr,  # stream
     ],
     "crt_occluded_wide": [
         _ptr, _ptr, _ptr, _ptr, _int,  # o, d, t0, mask, n
-        _ptr, _ptr, _int, _ptr, _int,  # wide nodes, wide roots, n_roots, tris4, leaf code form
+        _ptr, _ptr, _int, _ptr, _int,  # wide records, wide roots, n_roots, tris4, leaf code form
+        _ptr,  # perm
         _ptr, _ptr,  # occluded, stream
     ],
     "crt_wavefront_pt": [
@@ -100,7 +102,7 @@ _SIGNATURES = {
         _ptr, _ptr,  # out, stream
     ],
     "crt_mxu_leaf": [
-        _ptr, _ptr, _int, _int, _int,  # packed C, phi, n_tiles, m, n_flush
+        _ptr, _ptr, _int, _int,  # C in fragment order, phi ray-major, n_tiles, m
         _ptr, _ptr,  # out, stream
     ],
     "crt_sync_probe": [

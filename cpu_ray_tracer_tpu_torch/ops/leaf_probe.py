@@ -18,8 +18,9 @@ package's probe `benchmarks/mxu_probe.py:65`, `:110` (launched at `:174`,
         features; flush i (of 512 / m) tests group i % 4; out = t + slot of
         every ray of the tile.  The JAX kernel stores only rays 0-127 of
         each tile (`[:, None, :128]`); the port's kernel writes all of them.
-        `packed` is `pack_c(c_tab, m)`, the kernel's row order, made once
-        per table by the caller; None packs it in the call.
+        `packed` is `pack(c_tab, phi, m)`: C in the kernel's fragment order
+        (`pack_c`) and Phi ray-major (`pack_phi`), made once per input by
+        the caller; None packs them in the call.
 
 Each wrapper runs the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no other fallback.  K6
@@ -133,28 +134,122 @@ def mxu_leaf_plain(c_tab, phi, m: int) -> torch.Tensor:
     return t + slot.to(torch.float32)
 
 
+PAIRS = 16  # 32-triangle pairs of accumulators per ray tile: 512 tests
+
+
+def a_blocks(m: int) -> int:
+    """Distinct 32-triangle blocks of C the kernel's pairs read: one at
+    m = 8 (a pair holds flushes 4P .. 4P + 3, groups 0-3 in warp order),
+    else one per (group, 32-triangle part of a flush)."""
+    return 1 if m == 8 else 4 * m // 32
+
+
+def _fragment_index(m: int):
+    """Index tensors (group, quantity, triangle, feature) of C for each
+    float of the kernel's fragment order [block, accumulator, k step,
+    warp, lane, register]: register r of lane 4g + q of warp w holds row
+    g + 8 (r & 1), column q + 4 (r >> 1) of the warp's 16 x 8 slice of A
+    (the m16n8k8 layout, which `wgmma` takes from registers); accumulator
+    h's rows g and g + 8 are quantities 2h and 2h + 1 (a, u*a; v*a, t*a)
+    of the pair's triangle 8w + g."""
+    shape = (a_blocks(m), 2, 2, 4, 8, 4, 4)
+    b, h, ks, w, g, q, r = (torch.arange(n).view([-1 if i == j else 1 for j in range(7)])
+                            for i, n in enumerate(shape))
+    if m == 8:
+        group, tri = w + 0 * b, g + 0 * b
+    else:
+        group = b // (m // 32)
+        tri = 32 * (b % (m // 32)) + 8 * w + g
+    quantity = 2 * h + (r & 1)
+    feature = 8 * ks + q + 4 * (r >> 1)
+    return [x.expand(shape) for x in (group, quantity, tri, feature)]
+
+
 def pack_c(c_tab: torch.Tensor, m: int) -> torch.Tensor:
-    """C's rows in the kernel's order: per group of 4m rows, per 8
-    triangles, the 32 rows [a; u*a; v*a; t*a] of those 8 (a 16-row
-    tensor-core fragment holds two quantities of the same 8 triangles)."""
-    return c_tab.reshape(4, 4, m // 8, 8, 16).permute(0, 2, 1, 3, 4).reshape(16 * m, 16)
+    """C [16m, 16] in the kernel's fragment order (`_fragment_index`):
+    float32 [a_blocks(m) * 2048]; pair P of a tile reads block P %
+    a_blocks(m), and its triangle of warp w, lane g is slot 32P + 8w + g."""
+    group, quantity, tri, feature = _fragment_index(m)
+    q = c_tab.reshape(4, 4, m, 16)
+    return q[group.to(c_tab.device), quantity.to(c_tab.device), tri.to(c_tab.device),
+             feature.to(c_tab.device)].reshape(-1)
+
+
+def unpack_c(packed: torch.Tensor, m: int) -> torch.Tensor:
+    """C [16m, 16] from `pack_c(C, m)`."""
+    group, quantity, tri, feature = (x.reshape(-1).to(packed.device)
+                                     for x in _fragment_index(m))
+    out = torch.full((4, 4, m, 16), float("nan"), dtype=packed.dtype, device=packed.device)
+    out[group, quantity, tri, feature] = packed
+    return out.reshape(16 * m, 16)
+
+
+def pack_phi(phi: torch.Tensor) -> torch.Tensor:
+    """Phi [T, 16, 4096] ray-major, [T * 4096, 16]: a ray's 16 features in
+    64 bytes, the K-major B operand of `wgmma`."""
+    return phi.permute(0, 2, 1).reshape(-1, 16).contiguous()
+
+
+def pack(c_tab: torch.Tensor, phi: torch.Tensor, m: int) -> tuple:
+    """K7's inputs in its layouts, made once per input by the caller."""
+    return pack_c(c_tab, m).contiguous(), pack_phi(phi)
+
+
+def mxu_leaf_pairs_plain(packed: tuple, m: int) -> torch.Tensor:
+    """K7 in the kernel's order, on its packed inputs, in plain PyTorch:
+    pair by pair (32 triangles, slot 32P + 8w + g) the product in
+    float64, rounded once to float32, the probe's float32 epilogue
+    accepting without `tt < t`, and the smaller (t, slot) kept.  Equals
+    `mxu_leaf_plain` (the probe's flush order) on the same inputs."""
+    c_frag, phi_rm = packed
+    n_rays, dev = phi_rm.shape[0], phi_rm.device
+    group, quantity, tri, feature = (x.to(dev) for x in _fragment_index(m))
+    frag = c_frag.reshape(group.shape)
+    # each block's A: [block, accumulator, warp, row, feature]
+    a_mat = torch.zeros((a_blocks(m), 2, 4, 16, 16), dtype=c_frag.dtype, device=dev)
+    shape = group.shape
+    b, h, ks, w, g, q, r = (torch.arange(n, device=dev).view(
+        [-1 if i == j else 1 for j in range(7)]).expand(shape) for i, n in enumerate(shape))
+    a_mat[b, h, w, g + 8 * (r & 1), 8 * ks + q + 4 * (r >> 1)] = frag
+    phi64 = phi_rm.double().t()
+    t = torch.full((n_rays,), float(FAR), dtype=torch.float32, device=dev)
+    slot = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
+    sub = torch.arange(32, dtype=torch.int32, device=dev).view(32, 1)
+    for pair in range(PAIRS):
+        prod = torch.matmul(a_mat[pair % a_blocks(m)].double().reshape(128, 16), phi64).float()
+        prod = prod.reshape(2, 4, 2, 8, n_rays)  # accumulator, warp, row half, g, ray
+        a, ua = prod[0, :, 0].reshape(32, -1), prod[0, :, 1].reshape(32, -1)
+        va, ta = prod[1, :, 0].reshape(32, -1), prod[1, :, 1].reshape(32, -1)
+        f = 1.0 / torch.where(a.abs() < _TINY, _TINY, a)
+        uu, vv, tt = ua * f, va * f, ta * f
+        ok = _accept(a, uu, vv, tt, torch.full_like(tt, float("inf")))
+        cand = torch.where(ok, tt, FAR)
+        tb = cand.amin(dim=0)
+        win = torch.where(cand == tb, sub, 32).amin(dim=0)
+        better = tb < t  # equal t keeps the earlier pair's smaller slot
+        slot = torch.where(better, 32 * pair + win, slot)
+        t = torch.where(better, tb, t)
+    return t + slot.to(torch.float32)
 
 
 def mxu_leaf(c_tab, phi, m: int, packed=None) -> torch.Tensor:
     """K7: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors, on `packed` (`pack_c(c_tab, m)`; packed here when None)."""
+    tensors, on `packed` (`pack(c_tab, phi, m)`; packed here when None)."""
     if m not in WIDTHS:
         raise ValueError(f"mxu_leaf: m={m}, the kernel is built for {WIDTHS}")
     if kernel_lib.on_cpu("mxu_leaf", phi):
         return mxu_leaf_plain(c_tab, phi, m)
     if packed is None:
-        packed = pack_c(c_tab, m).contiguous()
+        packed = pack(c_tab, phi, m)
+    c_frag, phi_rm = packed
     n_tiles = phi.shape[0]
-    kernel_lib.require("mxu_leaf", phi.device, packed=(packed, torch.float32, (16 * m, 16)),
-                       phi=(phi, torch.float32, (n_tiles, 16, TILE)))
+    kernel_lib.require("mxu_leaf", phi.device,
+                       c_frag=(c_frag, torch.float32, (a_blocks(m) * 2048,)),
+                       phi_rm=(phi_rm, torch.float32, (n_tiles * TILE, 16)))
+    kernel_lib.require_aligned("mxu_leaf", c_frag=c_frag, phi_rm=phi_rm)
     out = torch.empty((n_tiles, TILE), dtype=torch.float32, device=phi.device)
     k = kernel_lib.load()
-    code = k.lib.crt_mxu_leaf(packed.data_ptr(), phi.data_ptr(), n_tiles, m, n_flush(m),
+    code = k.lib.crt_mxu_leaf(c_frag.data_ptr(), phi_rm.data_ptr(), n_tiles, m,
                               out.data_ptr(), kernel_lib.stream(phi.device))
     kernel_lib.check(k.lib, code, "mxu_leaf")
     mxu_leaf.launches[m] += 1

@@ -7,30 +7,36 @@ The port of the JAX package's wide walk `_kernel`
 (cpu_ray_tracer_tpu/ops/pallas/wide_bvh.py:54, launched at :292-335).
 There a 4096-ray tile pops one wide node per step under the tile's
 majority octant; here each ray walks alone, with its own octant
-(`csrc/ptraverse.cuh` `walk_wide`).  A step pops one wide node, slab-tests
-its 8 child boxes against the ray's current t, tests the triangles of each
-hit leaf child in slot order (child 0 first), and goes on to the nearest
-hit interior child under the node's order word for the ray's octant.  The
-other hit interior children stay behind as one stack word
-`node << 8 | pending-child mask` (the JAX kernel's word, wide_bvh.py:
-202-251), from which a later pop takes the nearest; a pending word with
-mask 0 is a forest root.  So the stack holds at most one word per level,
-and `accel/wide.py` asserts its capacity at pack time.  `traversed`
-counts wide-node steps, `tested` the triangle tests; the any-hit mode
-stops at the first accepted triangle.
+(`csrc/ptraverse.cuh` `wide_step`).  A step takes one wide node,
+slab-tests its 8 child boxes against the ray's current t, tests the
+triangles of each hit leaf child in slot order (child 0 first), and goes
+on to the nearest hit interior child under the node's order word for the
+ray's octant.  The other hit interior children go on the ray's stack as
+node ids, far to near, so that a later pop takes the nearest: the pop
+order of the JAX kernel's stack word `node << 8 | pending-child mask`
+(wide_bvh.py:202-251), without going back to the parent's record.  The
+forest's other roots wait on the stack below them, and `accel/wide.py`
+checks the stack's capacity at pack time.  `traversed` counts wide-node
+steps, `tested` the triangle tests; the any-hit mode stops at the first
+accepted triangle.  The kernel reads `wide_records` (the boxes laid out
+for 16-byte loads), and so does the plain version.
 
-Same arguments and outputs as `ops/closest_hit.py`; the slots are the
-binary pack's.  Each wrapper runs the plain version for tensors on the CPU
+Same arguments and outputs as `ops/closest_hit.py`, and an optional lane
+order `perm` int32 [R] (lane j of the kernel takes ray perm[j]: the
+camera's `core/camera.lane_order` for a frame's primary rays), which
+moves only which lane walks which ray; the slots are the binary pack's.  Each wrapper runs the plain version for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no other
 fallback.
 """
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from cpu_ray_tracer_tpu_torch.accel.pack import LEAF_SHIFT
-from cpu_ray_tracer_tpu_torch.accel.wide import W_CHILD, W_ORDER, WIDE, WIDE_STACK_CAP
+from cpu_ray_tracer_tpu_torch.accel.wide import W_CHILD, W_FIELDS, W_ORDER, WIDE
 from cpu_ray_tracer_tpu_torch.ops import kernel_lib
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
     decode, id_tables, launch_closest, launch_occluded, leaf_tests, octants, outputs, slab,
@@ -40,16 +46,6 @@ from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
 def _bit(s: torch.Tensor) -> torch.Tensor:
     """1 << s, elementwise."""
     return torch.ones_like(s) << s
-
-
-def _nearest(bits: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """The child slot of `bits` [n] of lowest rank in order words `order`
-    [n] (rank r at bits 3r .. 3r + 2), -1 where `bits` is 0."""
-    sel = torch.full_like(bits, -1)
-    for rank in range(WIDE):
-        s = (order >> (3 * rank)) & 7
-        sel = torch.where((sel < 0) & (((bits >> s) & 1) > 0), s, sel)
-    return sel
 
 
 def leaf_fields(scene, code: torch.Tensor):
@@ -62,31 +58,37 @@ def leaf_fields(scene, code: torch.Tensor):
 
 
 def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
-    """The kernel's walk in plain PyTorch, lockstep over the rays: each
-    round every unfinished ray takes one step of its own walk.  With
+    """The kernel's walk in plain PyTorch over `wide_records`, lockstep
+    over the rays: each round every unfinished ray takes one step of its
+    own walk.  The pending interior children of a step go on the ray's
+    stack as node ids, far to near, so that a pop takes the nearest.  With
     `any_hit` a ray stops after the step in which it accepted a triangle
     (the kernel stops at that triangle; the boolean is the same)."""
-    wide, tris = scene.wide_nodes.long(), scene.tris
+    rec, tris = scene.wide_records.long(), scene.tris
     r, dev = o.shape[0], o.device
     res = outputs(t0)
     live = torch.ones(r, dtype=torch.bool, device=dev) if mask is None else mask.bool()
     rd = 1.0 / d
     order_col = W_ORDER + octants(d)
-    boxes = scene.wide_nodes[:, : 6 * WIDE].view(torch.float32).reshape(-1, WIDE, 6)
+    # word 8f + k: field f of child k
+    boxes = (scene.wide_records[:, : W_FIELDS * WIDE].view(torch.float32)
+             .reshape(-1, W_FIELDS, WIDE).transpose(1, 2))
     roots = scene.wide_roots.long()
-    # forest roots after the first wait on the stack as mask-0 words
-    stack = torch.zeros((r, WIDE_STACK_CAP), dtype=torch.long, device=dev)
-    stack[:, : roots.numel() - 1] = roots[1:].flip(0) << 8
+    # forest roots after the first wait on the stack
+    cap = max(scene.wide_stack + roots.numel() - 1, 1)
+    stack = torch.zeros((r, cap), dtype=torch.long, device=dev)
+    stack[:, : roots.numel() - 1] = roots[1:].flip(0)
     sp = torch.full((r,), roots.numel() - 1, dtype=torch.long, device=dev)
     cur = torch.where(live, roots[0], -1)
+    ranks = torch.arange(WIDE, device=dev)
     while True:
         ids = torch.nonzero(cur >= 0).squeeze(1)
         if ids.numel() == 0:
             break
         n = ids.numel()
         c = cur[ids]
-        rec = wide[c]
-        child = rec[:, W_CHILD : W_CHILD + WIDE]
+        row = rec[c]
+        child = row[:, W_CHILD : W_CHILD + WIDE]
         hit = slab(
             boxes[c].reshape(-1, 6), o[ids].repeat_interleave(WIDE, 0),
             rd[ids].repeat_interleave(WIDE, 0), res["t"][ids].repeat_interleave(WIDE, 0),
@@ -97,30 +99,32 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
             m = hit[:, k] & leaf[:, k]
             first, count = leaf_fields(scene, ~child[m, k])
             leaf_tests(tris, ids[m], first, count, o, d, res)
-        interior = hit & (child > 0)
-        ibits = (interior.long() * _bit(torch.arange(WIDE, device=dev))).sum(1)
-        sel = _nearest(ibits, rec.gather(1, order_col[ids, None])[:, 0])
-        down = sel >= 0
-        rest = ibits & ~_bit(sel.clamp_min(0))
-        # pop: the top word's nearest pending child, or the root it names
+        bits = ((hit & (child > 0)).long() * _bit(ranks)).sum(1)
+        n_int = torch.zeros_like(bits)
+        for k in range(WIDE):
+            n_int += (bits >> k) & 1
+        ow = row.gather(1, order_col[ids, None])[:, 0]
         sp_i = sp[ids]
-        top = stack[ids, (sp_i - 1).clamp_min(0)]
-        p, pm = top >> 8, top & 0xFF
-        prec = wide[p]
-        selp = _nearest(pm, prec.gather(1, order_col[ids, None])[:, 0])
-        pop_child = prec.gather(1, W_CHILD + selp.clamp_min(0)[:, None])[:, 0]
-        pop_to = torch.where(pm == 0, p, pop_child)
-        pm_rest = pm & ~_bit(selp.clamp_min(0))
-        can_pop = ~down & (sp_i > 0)
-        nxt = torch.where(
-            down, child.gather(1, sel.clamp_min(0)[:, None])[:, 0],
-            torch.where(can_pop, pop_to, -1),
-        )
-        push = down & (rest != 0)
-        stack[ids[push], sp_i[push]] = (c[push] << 8) | rest[push]
-        keep = can_pop & (pm_rest != 0)
-        stack[ids[keep], sp_i[keep] - 1] = (p[keep] << 8) | pm_rest[keep]
-        sp[ids] = sp_i + push.long() - (can_pop & ~keep).long()
+        top = sp_i + n_int - 1
+        # the hit interior children in rank order: the first is the next
+        # node, the j-th (j >= 1) goes to stack entry top - j
+        nxt = torch.full_like(c, -1)
+        j = torch.zeros_like(c)
+        for rank in range(WIDE):
+            s_ = (ow >> (3 * rank)) & 7
+            take = ((bits >> s_) & 1) > 0
+            bits = bits & ~(take.long() << s_)
+            cw = child.gather(1, s_[:, None])[:, 0]
+            nxt = torch.where(take & (j == 0), cw, nxt)
+            push = take & (j > 0)
+            stack[ids[push], (top - j)[push]] = cw[push]
+            j = j + take.long()
+        # no interior child hit: pop the nearest pending one
+        pop = n_int == 0
+        can_pop = pop & (sp_i > 0)
+        popped = stack[ids, (sp_i - 1).clamp_min(0)]
+        nxt = torch.where(pop, torch.where(can_pop, popped, -1), nxt)
+        sp[ids] = torch.where(pop, sp_i - can_pop.long(), top)
         if any_hit:
             nxt = torch.where(res["slot"][ids] >= 0, -1, nxt)
         cur[ids] = nxt
@@ -128,57 +132,84 @@ def _walk_plain(scene, o, d, t0, mask, any_hit: bool) -> dict:
     return res
 
 
-def closest_hit_wide_plain(scene, o, d, t0, mask=None) -> dict:
+def closest_hit_wide_plain(scene, o, d, t0, mask=None, perm=None) -> dict:
     """The kernel's closest-hit walk in plain PyTorch, lockstep over the
-    rays, so t/u/v, ids and counters equal the kernel's."""
+    rays, so t/u/v, ids and counters equal the kernel's (`perm` changes
+    nothing here: each ray's outputs are its own)."""
     return decode(scene, _walk_plain(scene, o, d, t0, mask, any_hit=False))
 
 
-def occluded_wide_plain(scene, o, d, t0, mask=None) -> torch.Tensor:
+def occluded_wide_plain(scene, o, d, t0, mask=None, perm=None) -> torch.Tensor:
     """Bool [R]: whether a triangle hit exists in (TRI_EPS, t0), by the
     any-hit wide walk in plain PyTorch."""
     return _walk_plain(scene, o, d, t0, mask, any_hit=True)["slot"] >= 0
 
 
+# (weak reference, version) of each lane order found to be a permutation,
+# by id: the check syncs with the card, and a frame passes the same
+# `core/camera.lane_order` tensor every time
+_CHECKED_PERMS: dict = {}
+
+
+def check_perm(what: str, perm, n: int, device) -> None:
+    """Raise unless `perm` is None or a contiguous int32 [n] tensor on
+    `device` holding each of 0 .. n - 1 once."""
+    if perm is None:
+        return
+    kernel_lib.require(what, device, perm=(perm, torch.int32, (n,)))
+    seen = _CHECKED_PERMS.get(id(perm))
+    if seen is not None and seen[0]() is perm and seen[1] == perm._version:
+        return
+    if not torch.equal(torch.sort(perm).values,
+                       torch.arange(n, dtype=torch.int32, device=perm.device)):
+        raise ValueError(f"{what}: perm is not a permutation of 0 .. {n - 1}")
+    for key in [k for k, (ref, _) in _CHECKED_PERMS.items() if ref() is None]:
+        del _CHECKED_PERMS[key]
+    _CHECKED_PERMS[id(perm)] = (weakref.ref(perm), perm._version)
+
+
 def _has_tables(what, scene) -> None:
-    if scene.wide_nodes is None:
+    if scene.wide_records is None:
         raise ValueError(f"{what}: the scene has no wide tables (walk {scene.walk!r})")
 
 
 def _tables(what, scene, device) -> list:
     kernel_lib.require(
-        what, device, wide_nodes=(scene.wide_nodes, torch.int32, None),
+        what, device, wide_records=(scene.wide_records, torch.int32, None),
         wide_roots=(scene.wide_roots, torch.int32, None),
         tris4=(scene.tris4, torch.float32, None), shade=(scene.shade, torch.float32, None),
     )
-    kernel_lib.require_aligned(what, tris4=scene.tris4)
-    return [scene.wide_nodes.data_ptr(), scene.wide_roots.data_ptr(), scene.wide_roots.numel(),
+    kernel_lib.require_aligned(what, wide_records=scene.wide_records, tris4=scene.tris4)
+    return [scene.wide_records.data_ptr(), scene.wide_roots.data_ptr(), scene.wide_roots.numel(),
             scene.tris4.data_ptr()]
 
 
-def closest_hit_wide(scene, o, d, t0, mask=None) -> dict:
+def closest_hit_wide(scene, o, d, t0, mask=None, perm=None) -> dict:
     """Closest hit by the wide walk: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
+    CUDA kernel for CUDA tensors, its lanes taking the rays in the order
+    `perm` int32 [R] where given (outputs in ray order either way)."""
     _has_tables("closest_hit_wide", scene)
+    check_perm("closest_hit_wide", perm, o.shape[0], o.device)
     if kernel_lib.on_cpu("closest_hit_wide", o):
         return closest_hit_wide_plain(scene, o, d, t0, mask)
-    tables = _tables("closest_hit_wide", scene, o.device)
     out = launch_closest("closest_hit_wide", "crt_closest_hit_wide", o, d, t0, mask,
-                         [*tables, *id_tables("closest_hit_wide", scene, o.device),
-                          int(scene.leaf_codes)])
+                         [*_tables("closest_hit_wide", scene, o.device),
+                          *id_tables("closest_hit_wide", scene, o.device),
+                          int(scene.leaf_codes), kernel_lib.ptr(perm)])
     closest_hit_wide.launches += 1
     return out
 
 
-def occluded_wide(scene, o, d, t0, mask=None) -> torch.Tensor:
+def occluded_wide(scene, o, d, t0, mask=None, perm=None) -> torch.Tensor:
     """Any hit by the wide walk: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors, in the lane order `perm` where given."""
     _has_tables("occluded_wide", scene)
+    check_perm("occluded_wide", perm, o.shape[0], o.device)
     if kernel_lib.on_cpu("occluded_wide", o):
         return occluded_wide_plain(scene, o, d, t0, mask)
-    tables = _tables("occluded_wide", scene, o.device)
     out = launch_occluded("occluded_wide", "crt_occluded_wide", o, d, t0, mask,
-                          [*tables, int(scene.leaf_codes)])
+                          [*_tables("occluded_wide", scene, o.device), int(scene.leaf_codes),
+                           kernel_lib.ptr(perm)])
     occluded_wide.launches += 1
     return out
 

@@ -13,10 +13,13 @@ from cpu_ray_tracer_tpu_torch.scene import query
 EPS = constants.SHADE_EPS
 
 
-def direct_illumination(scene, point: torch.Tensor, normal: torch.Tensor, active=None):
+def direct_illumination(scene, point: torch.Tensor, normal: torch.Tensor, active=None,
+                        perm=None):
     """Point-light irradiance [R, 3] with a shadow ray
     (2. WhittedStyle/renderer.cpp:105-126): inverse-square falloff, N.L,
-    shadow distance dist - 2 EPS; zero where `active` [R] is False."""
+    shadow distance dist - 2 EPS; zero where `active` [R] is False.  The
+    shadow query's lanes take the rays in the order `perm` where given
+    (`query.is_occluded`)."""
     light_pos = query.get_light_pos(scene)
     l = light_pos - point
     dist = torch.sqrt((l * l).sum(dim=-1))
@@ -26,6 +29,7 @@ def direct_illumination(scene, point: torch.Tensor, normal: torch.Tensor, active
     occ = query.is_occluded(
         scene, (point + l * EPS).contiguous(), l.contiguous(),
         torch.clamp_min(dist - np.float32(2.0) * EPS, np.float32(1e-6)), mask=active,
+        perm=perm,
     )
     att = 1.0 / torch.clamp_min(dist * dist, np.float32(1e-20))
     irr = scene.light_color * (att * ndotl)[:, None]

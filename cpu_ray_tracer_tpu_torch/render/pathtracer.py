@@ -38,9 +38,11 @@ The ray state of the host bounce stays in pixel order.  At each depth the
 live rays are gathered, ordered by (direction octant, previous hit: the
 triangle, or the slot where the wavefront kernel made the hit) — the
 `locus` key of the JAX package's `_compaction_perm`, which only affects
-speed — bounced, and scattered back.  This replaces the JAX package's
-chunk scans, `lax.cond` skips and tier cascade, which exist for XLA's
-static shapes.
+speed — bounced, and scattered back.  Depth 0 over the wide walk is the
+exception: every camera ray is live, and the walk's lanes take them in
+the camera's lane order (`ops/wide_bvh.py` `perm`) without a gather.
+This replaces the JAX package's chunk scans, `lax.cond` skips and tier
+cascade, which exist for XLA's static shapes.
 """
 
 from __future__ import annotations
@@ -83,9 +85,10 @@ def locus_order(d: torch.Tensor, locus: torch.Tensor) -> torch.Tensor:
     return torch.argsort(key, stable=True)
 
 
-def bounce_step(scene, s: dict, depth: int, depth_limit: int) -> dict:
-    """Advance every ray of `s` (all alive) one path segment."""
-    res = query.find_nearest(scene, s["o"], s["d"])
+def bounce_step(scene, s: dict, depth: int, depth_limit: int, perm=None) -> dict:
+    """Advance every ray of `s` (all alive) one path segment, the wide
+    walk's lanes taking the rays in the order `perm` where given."""
+    res = query.find_nearest(scene, s["o"], s["d"], perm)
     t = res["t"]
     hit = res["obj_idx"] >= 0
     missed = s["missed"] | ~hit
@@ -165,7 +168,8 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
     `rays_traced` (path segments traced, an int), per-ray `traversed` and
     `tested` counters.  The first `wavefront_depths` depths run in the
     wavefront kernel (module docstring), its lanes taking the rays in the
-    order `perm` int32 [R] where given and the kernel runs one depth."""
+    order `perm` int32 [R] where given and the kernel runs one depth; on
+    the wide walk, depth 0 of the host bounce takes them in that order."""
     wavefront_depths = wavefront_depths_for(scene, wavefront_depths)
     factor = None
     first = 0
@@ -192,6 +196,11 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
         if live.numel() == 0:
             break
         with torch.profiler.record_function(f"depth_{depth}"):
+            if depth == 0 and query.wide_perm(scene, perm) is not None:
+                # every camera ray, in pixel order, to the wide walk's
+                # lanes in the camera's lane order
+                state.update(bounce_step(scene, state, depth, depth_limit, perm))
+                continue
             idx = live[locus_order(state["d"][live], state["locus"][live])]
             out = bounce_step(scene, {k: state[k][idx] for k in _STATE}, depth, depth_limit)
             for k in _STATE:

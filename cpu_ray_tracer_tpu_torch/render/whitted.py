@@ -62,8 +62,10 @@ def level_kernel_for(scene, level_kernel) -> bool:
 
 def _level_host(scene, o, d, inside, perm=None) -> dict:
     """One level's hits, albedo, irradiance and dielectric terms through the
-    host queries (`_shade_level`)."""
-    res = query.find_nearest(scene, o, d)
+    host queries (`_shade_level`), the wide walk's lanes taking the rays
+    in the order `perm` where given."""
+    perm = query.wide_perm(scene, perm)
+    res = query.find_nearest(scene, o, d, perm)
     hit = res["obj_idx"] >= 0
     point = o + res["t"][:, None] * d
     normal, uv, mat_id = query.get_hit_info(scene, res, point, d)
@@ -76,7 +78,7 @@ def _level_host(scene, o, d, inside, perm=None) -> dict:
     return dict(
         t=res["t"], point=point, miss=~hit, lit=is_light, surf=surf, fields=mf,
         albedo=query.get_albedo(scene, mf, uv),
-        irradiance=common.direct_illumination(scene, point, normal, active=diffuse),
+        irradiance=common.direct_illumination(scene, point, normal, active=diffuse, perm=perm),
         fr=fr, r_dir=r_dir, t_dir=t_dir, emit2=is_diel & can,
         traversed=res["traversed"], tested=res["tested"],
     )

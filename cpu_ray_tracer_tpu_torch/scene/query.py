@@ -20,31 +20,48 @@ from cpu_ray_tracer_tpu_torch.ops.link_walk import closest_hit_links, occluded_l
 from cpu_ray_tracer_tpu_torch.ops.wide_bvh import closest_hit_wide, occluded_wide
 
 
-def triangle_hit(scene, o, d, t0, mask=None) -> dict:
+def wide_perm(scene, perm):
+    """`perm` where the scene's walk takes a lane order (the wide walk),
+    else None: the binary and link walks take rays in order."""
+    return perm if scene.walk == "wide" else None
+
+
+def triangle_hit(scene, o, d, t0, mask=None, perm=None) -> dict:
     """Closest triangle hit (`ops/closest_hit.py`'s dict) by the scene's
-    walk (the JAX package's `_traverse_accel`, scene/query.py:90-139)."""
+    walk (the JAX package's `_traverse_accel`, scene/query.py:90-139); the
+    wide walk's lanes take the rays in the order `perm` where given (the
+    other walks refuse one)."""
+    if scene.walk == "wide":
+        return closest_hit_wide(scene, o, d, t0, mask, perm)
+    _no_perm(scene, perm)
     if scene.walk == "links":
         return closest_hit_links(scene, o, d, t0, mask)
-    if scene.walk == "wide":
-        return closest_hit_wide(scene, o, d, t0, mask)
     return closest_hit(scene, o, d, t0, mask)
 
 
-def triangle_occluded(scene, o, d, t0, mask=None) -> torch.Tensor:
-    """Any triangle hit in (TRI_EPS, t0), bool [R], by the scene's walk."""
+def triangle_occluded(scene, o, d, t0, mask=None, perm=None) -> torch.Tensor:
+    """Any triangle hit in (TRI_EPS, t0), bool [R], by the scene's walk,
+    in the lane order `perm` as `triangle_hit`."""
+    if scene.walk == "wide":
+        return occluded_wide(scene, o, d, t0, mask, perm)
+    _no_perm(scene, perm)
     if scene.walk == "links":
         return occluded_links(scene, o, d, t0, mask)
-    if scene.walk == "wide":
-        return occluded_wide(scene, o, d, t0, mask)
     return occluded(scene, o, d, t0, mask)
 
 
-def find_nearest(scene, o: torch.Tensor, d: torch.Tensor) -> dict:
+def _no_perm(scene, perm) -> None:
+    if perm is not None:
+        raise ValueError(f"a lane order for the {scene.walk!r} walk, which takes rays in order")
+
+
+def find_nearest(scene, o: torch.Tensor, d: torch.Tensor, perm=None) -> dict:
     """Nearest hit over light quad -> floor plane -> triangle BVH, as
     FileScene::FindNearest (file_scene.cpp:170-175).  Object ids: 0 light,
-    1 floor, >= 2 mesh instances, -1 miss."""
+    1 floor, >= 2 mesh instances, -1 miss.  `perm`: the wide walk's lane
+    order (`triangle_hit`)."""
     t, obj = intersect.primitive_hits(scene, o, d)
-    res = triangle_hit(scene, o, d, t)
+    res = triangle_hit(scene, o, d, t, perm=perm)
     tri_hit = res["tri_idx"] >= 0
     return dict(
         t=res["t"],
@@ -59,15 +76,16 @@ def find_nearest(scene, o: torch.Tensor, d: torch.Tensor) -> dict:
     )
 
 
-def is_occluded(scene, o: torch.Tensor, d: torch.Tensor, dist: torch.Tensor, mask=None):
+def is_occluded(scene, o: torch.Tensor, d: torch.Tensor, dist: torch.Tensor, mask=None,
+                perm=None):
     """Shadow query (file_scene.cpp:177-187): the light quad occludes within
     `dist` (the caller passes dist - 2 EPS); triangles occlude within
     RAY_FAR when `scene.shadow_quirk` (the reference's quirk), else within
     `dist`.  The floor never occludes.  `mask` [R] bool limits the triangle
-    query; bool [R]."""
+    query, `perm` is the wide walk's lane order; bool [R]."""
     _, lhit = intersect.quad(o, d, scene.light_inv_t, scene.light_size, dist)
     tri_t = torch.full_like(dist, constants.RAY_FAR) if scene.shadow_quirk else dist
-    return lhit | triangle_occluded(scene, o, d, tri_t.contiguous(), mask)
+    return lhit | triangle_occluded(scene, o, d, tri_t.contiguous(), mask, perm)
 
 
 def get_light_pos(scene) -> torch.Tensor:

@@ -19,8 +19,9 @@ reaches (`bunny_teapot.xml`: 10,952 triangles, depth 15, leaves of at most
   object ids up to 71, past the meta word's 6 bits (`accel/pack.py`
   slot_ids); `big_leaf_xml(directory)`: the 600 coincident triangles as an
   OBJ, for the grid and KD tree, which put them all in one cell.
-* `scene_over(base, host, shade16, obj_id, mat_id)`: a DeviceScene over a
-  hand-built BVH with the materials, atlas, light and floor of `base`.
+* `scene_over(base, host, shade16, obj_id, mat_id, wide)`: a DeviceScene
+  over a hand-built BVH with the materials, atlas, light and floor of
+  `base`, collapsed into 8-wide nodes with `wide`.
 
 The host arrays are those `accel/pack.pack_bvh` takes (`node_min`,
 `node_max`, `left`, `right`, `axis`, `left_first`, `tri_count`,
@@ -34,6 +35,7 @@ import os
 import numpy as np
 
 from cpu_ray_tracer_tpu_torch.accel import pack
+from cpu_ray_tracer_tpu_torch.accel import wide as wide_mod
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
 from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene
@@ -109,10 +111,11 @@ def flat_shading(tri_v: np.ndarray, mat: int = 2) -> np.ndarray:
 
 
 def scene_over(base: DeviceScene, host: dict, shade16=None, obj_id=None,
-               mat_id=None) -> DeviceScene:
+               mat_id=None, wide: bool = False) -> DeviceScene:
     """A DeviceScene (on the CPU) over the hand-built BVH `host`, with the
     materials, atlas, light and floor of `base`; by default every triangle
-    is object 2 with material 2, flat-shaded."""
+    is object 2 with material 2, flat-shaded.  `wide` collapses the tree
+    into 8-wide nodes as `compile_scene(wide=True)` does (walk "wide")."""
     tri_v = host["tri_v"]
     n = tri_v.shape[0]
     obj_id = np.full(n, 2, np.int32) if obj_id is None else obj_id
@@ -123,6 +126,12 @@ def scene_over(base: DeviceScene, host: dict, shade16=None, obj_id=None,
         host["left_first"], host["tri_count"], host["tri_indices"], tri_v, shade16,
         obj_id, mat_id, root=int(host["root"]),
     )
+    wide_pack = None
+    if wide:
+        wide_pack = wide_mod.pack_wide(
+            host["node_min"], host["node_max"], host["left"], host["right"], host["tri_count"],
+            int(host["root"]), packed.nodes[:, pack.N_FIRST], packed.nodes[:, pack.N_COUNT],
+            packed.leaf_codes)
     v0 = tri_v[:, 0]
 
     def np_(name):
@@ -141,7 +150,7 @@ def scene_over(base: DeviceScene, host: dict, shade16=None, obj_id=None,
         light_t=np_("light_t"), light_inv_t=np_("light_inv_t"),
         light_size=float(base.light_size), light_color=np_("light_color"),
         floor_inv_to=float(base.floor_inv_to), skydome_tex=base.skydome_tex,
-        shadow_quirk=base.shadow_quirk,
+        shadow_quirk=base.shadow_quirk, wide=wide_pack,
     )
 
 

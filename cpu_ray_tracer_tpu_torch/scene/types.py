@@ -10,14 +10,17 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
 * `links` (cell forests, and a BVH deeper than the stack walk's
   `STACK_CAP`) and `wide_nodes`, `wide_roots` (a wide BVH): the tables of
   the link walk and the wide walk, None where absent; `roots`, the
-  forest's roots in walk order;
+  forest's roots in walk order; `wide_stack`, the most node ids the wide
+  walk's stack holds at once from one root (`accel/wide.py`);
 * the tables the CUDA walks read, built from those (`accel/pack.py`):
   `node_records` int32 [M, 16] (the binary stack walk: both children's
   boxes and refs and the per-octant swap mask in one 64-byte record per
   interior node) with its start `record_root` (the root, or ~root for a
   one-leaf tree); `link_records` int32 [8, M, 8] (the link walk: box, hit
   link or leaf, miss link in one 32-byte record per octant and node; None
-  without `links`); `tris4` float32 [S, 12] (`tris` with v0, e1, e2
+  without `links`); `wide_records` int32 [W, 64] (the wide walk:
+  `wide_nodes` with the boxes field-major, for 16-byte loads;
+  `accel/wide.py`); `tris4` float32 [S, 12] (`tris` with v0, e1, e2
   padded to 16 bytes each);
 * `walk`: which kernel answers the scene's closest-hit and any-hit
   queries: "stack" (the binary walk, `ops/closest_hit.py`), "links" (the
@@ -113,6 +116,8 @@ class DeviceScene(nn.Module):
         buf("tris4", packed.tris4, np.float32)
         buf("wide_nodes", None if wide is None else wide.nodes, np.int32)
         buf("wide_roots", None if wide is None else wide.roots, np.int32)
+        buf("wide_records", None if wide is None else wide.records, np.int32)
+        self.wide_stack = 0 if wide is None else wide.stack
         self.stack_walk = packed.stack
         self.leaf_codes = packed.leaf_codes
         if wide is not None:

@@ -375,6 +375,82 @@ def test_permuted_whitted_matches_plain(scenes, cuda):
         _same(whitted_wf.trace_level0(scene, o, d, inside, perm=perm), want)
 
 
+@pytest.fixture(scope="module", params=["cube_scene", "bunny_teapot", "deep_100", "deep_140",
+                                        "big_leaf_bvh", "cubes70"])
+def wide_scenes(request, cuda, tmp_path_factory):
+    """The wide walk's scenes: the in-tree ones and the limit scenes
+    collapsed into 8-wide nodes (`synthetic.scene_over(wide=True)`)."""
+    name = request.param
+    directory = str(tmp_path_factory.mktemp(name))
+    if name in ("cube_scene", "bunny_teapot"):
+        cpu, _ = compile_scene(os.path.join(ASSETS, "scenes", f"{name}.xml"), device="cpu",
+                               wide=True)
+    elif name.startswith("deep"):
+        base, _ = compile_scene(os.path.join(ASSETS, "scenes", "cube_scene.xml"), device="cpu")
+        cpu = synthetic.scene_over(base, synthetic.caterpillar(int(name[5:])), wide=True)
+    elif name == "cubes70":
+        cpu, _ = compile_scene(synthetic.cubes_xml(directory, ASSETS), device="cpu", wide=True)
+    else:
+        cpu = synthetic.scene_over(
+            compile_scene(synthetic.big_leaf_xml(directory, ASSETS), device="cpu")[0],
+            synthetic.big_leaf_bvh(), wide=True)
+    return name, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["primary", "random"])
+def test_wide_walk_matches_plain_in_any_lane_order(wide_scenes, kind, cuda):
+    """K5 (records, the id stack, the lane order) closest and any hit,
+    bit-equal to its plain version with and without the camera's lane
+    order, steps and tests included."""
+    name, _, scene = wide_scenes
+    assert scene.walk == "wide"
+    camera = BENCH_CAMERA if name in ("cube_scene", "bunny_teapot") else {}
+    cam = cam_mod.make_camera(96, 60, **camera)
+    if kind == "primary":
+        o, d, _ = pathtracer.camera_rays(cam, 3, cuda)
+        t0, _ = intersect.primitive_hits(scene, o, d)
+        mask = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+        orders = (None, cam_mod.lane_order(cam, cuda))
+    else:
+        bmin, bmax = node_bounds(scene.nodes.cpu().numpy())
+        o, d, t0, mask = (torch.from_numpy(x).to(cuda) for x in random_rays(bmin, bmax, 4096, 7))
+        orders = (None, torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(3))
+                  .to(torch.int32).to(cuda))
+    want = wide_bvh.closest_hit_wide_plain(scene, o, d, t0, mask)
+    any_want = wide_bvh.occluded_wide_plain(scene, o, d, t0, mask)
+    for perm in orders:
+        before = wide_bvh.closest_hit_wide.launches
+        got = wide_bvh.closest_hit_wide(scene, o, d, t0, mask, perm)
+        torch.cuda.synchronize()
+        assert wide_bvh.closest_hit_wide.launches == before + 1
+        _same(got, want)
+        assert torch.equal(wide_bvh.occluded_wide(scene, o, d, t0, mask, perm), any_want)
+    if kind == "primary":
+        assert bool((want["tri_idx"] >= 0).any())
+
+
+def test_mxu_leaf_kernels_run_on_wgmma(cuda):
+    """Every instance of K7's kernel holds HGMMA (wgmma) in its SASS."""
+    import re
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from cpu_ray_tracer_tpu_torch.ops import kernel_lib
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                           kernel_lib.load().path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"mxu_leaf_kernelILi(\d+)E", line)
+            name = found and int(found.group(1))
+        elif name and "HGMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    assert set(counts) == set(leaf_probe.WIDTHS), counts
+
+
 @pytest.fixture(scope="module")
 def leaf_inputs(cuda):
     """The leaf probe's inputs at its full size: 64 tiles of 4096 rays."""

@@ -104,22 +104,27 @@ def test_mxu_plain_matches_jax_probe(leaf_inputs, m):
 
 
 def test_packed_c_gives_each_lane_one_triangle():
-    """The kernel's fragment reads of the packed C: lane g of the 8
-    triangles gi reads rows 16h + g and 16h + g + 8 of fragment h, which
-    must be a, u*a (h = 0) and v*a, t*a (h = 1) of triangle 8 gi + g."""
+    """The kernel's fragment reads of the packed C: in pair P (block P %
+    a_blocks(m)), register r of lane 4g + q of warp w holds row g + 8 (r &
+    1), column 8 ks + q + 4 (r >> 1) of its warp's slice of accumulator h,
+    which must be quantity 2h + (r & 1) (a, u*a; v*a, t*a) of triangle
+    slot 32P + 8w + g: triangle slot % m of group (slot // m) % 4, the
+    probe's flush slot // m."""
     for m in leaf_probe.WIDTHS:
         c = torch.arange(16 * m * 16, dtype=torch.float32).reshape(16 * m, 16)
-        packed = leaf_probe.pack_c(c, m)
-        for group in range(4):
-            src = c[group * 4 * m:(group + 1) * 4 * m]
-            dst = packed[group * 4 * m:(group + 1) * 4 * m]
-            for gi in range(m // 8):
-                for g in range(8):
-                    for h in range(2):
-                        for half in range(2):
-                            quantity = 2 * h + half
-                            row = dst[32 * gi + 16 * h + 8 * half + g]
-                            assert torch.equal(row, src[quantity * m + 8 * gi + g])
+        packed = leaf_probe.pack_c(c, m).reshape(leaf_probe.a_blocks(m), 2, 2, 4, 8, 4, 4)
+        for pair in range(leaf_probe.PAIRS):
+            block = packed[pair % leaf_probe.a_blocks(m)]
+            for h in range(2):
+                for w in range(4):
+                    for g in range(8):
+                        slot = 32 * pair + 8 * w + g
+                        group, tri = (slot // m) % 4, slot % m
+                        for r in range(4):
+                            row = group * 4 * m + (2 * h + (r & 1)) * m + tri
+                            for ks in range(2):
+                                cols = 8 * ks + torch.arange(4) + 4 * (r >> 1)
+                                assert torch.equal(block[h, ks, w, g, :, r], c[row, cols])
 
 
 def test_uncertain_flags_near_decisions_only():

@@ -203,19 +203,33 @@ def test_wide_wrappers_take_plain_version_on_cpu():
             fn(bvh, o, d, t0)
 
 
-def test_wide_stack_capacity_is_checked_at_pack_time():
-    """A chain of binary nodes deeper than the wide stack holds is refused
-    when packed, never overrun in the walk."""
-    # a caterpillar, a leaf and an interior node per level: a wide node
-    # opens 7 of its levels, so 8 * WIDE_STACK_CAP levels overrun the stack
-    n = 2 * 8 * wide.WIDE_STACK_CAP + 1
+def _comb(levels: int):
+    """A spine of `levels` binary nodes, each with a small interior subtree
+    (an interior node over two leaves, a smaller box) beside the next
+    spine node, ending in an interior node over two leaves: a wide node
+    opens 7 spine levels and keeps 8 interior children, so a walk down the
+    spine leaves 7 node ids per wide level on the stack, about one per
+    spine level.  Arguments of `wide.pack_wide`."""
+    n = 4 * levels + 3
     left, right = np.full(n, -1, np.int32), np.full(n, -1, np.int32)
     count = np.zeros(n, np.int32)
-    for i in range(0, n - 1, 2):
-        left[i], right[i] = i + 1, i + 2
-        count[i + 1] = 1
-    count[n - 1] = 1
-    lo = np.zeros((n, 3), np.float32)
-    hi = np.ones((n, 3), np.float32)
-    with pytest.raises(ValueError, match="stack capacity"):
-        wide.pack_wide(lo, hi, left, right, count, 0, np.arange(n), count, True)
+    lo, hi = np.zeros((n, 3), np.float32), np.ones((n, 3), np.float32)
+    for i in range(levels):
+        spine, small = 4 * i, 4 * i + 1
+        left[spine], right[spine] = small, 4 * (i + 1)
+        left[small], right[small] = small + 1, small + 2
+        count[small + 1] = count[small + 2] = 1
+        hi[small:small + 3] = 0.5
+    last = 4 * levels
+    left[last], right[last] = last + 1, last + 2
+    count[last + 1] = count[last + 2] = 1
+    return lo, hi, left, right, count, 0, np.arange(n), count, True
+
+
+def test_wide_stack_capacity_is_checked_at_pack_time():
+    """A tree whose pending interior children would overrun the wide
+    stack is refused when packed, never overrun in the walk."""
+    packed = wide.pack_wide(*_comb(64))
+    assert 56 <= packed.stack <= 70
+    with pytest.raises(ValueError, match="capacity"):
+        wide.pack_wide(*_comb(wide.WIDE_STACK_CAP + 16))

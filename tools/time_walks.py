@@ -4,6 +4,7 @@
 times two checkouts alike:
 
     python tools/time_walks.py [--repo DIR] [--label NAME] [--json PATH]
+                               [--walks bvh,grid,kdtree,wide,fused,deep,leaf]
 
 `--repo DIR` imports `cpu_ray_tracer_tpu_torch` from another checkout (for
 example the parent commit unpacked with `git archive` into a git-ignored
@@ -34,6 +35,13 @@ every other row stands on; the primary rays in a seeded random order give
 the cost of divergence (the same rays, grouped into warps at random).
 Also prints the card (nvidia-smi) and each walk kernel's registers, stack
 frame and spills from the build's `-Xptxas -v` log.
+
+`--walks` picks the rows: the four accelerators' walks, the fused kernels
+(`fused`), the deep trees (`deep`) and the leaf-test probes (`leaf`: K6
+and K7 at every m on the probe's 64 tiles, `benchmarks/mxu_probe.inputs`).
+The wide walk also runs its primary rays, and the any hit a Whitted
+frame's level-0 shadow rays, in the camera's lane order (`perm`) where
+the checkout takes one.
 """
 
 import argparse
@@ -50,14 +58,16 @@ CAMERA = dict(pos=(0.0, 0.3, -1.2), target=(0.0, -0.1, 2.5))  # bench.py
 WIDTH, HEIGHT, DEPTH, REPEATS, ROUNDS = 1280, 720, 5, 20, 5
 WALK_KERNELS = ("closest_hit_kernel", "occluded_kernel", "closest_hit_links_kernel",
                 "occluded_links_kernel", "closest_hit_wide_kernel", "occluded_wide_kernel",
-                "wavefront_kernel", "whitted_kernel")
+                "wavefront_kernel", "whitted_kernel", "vpu_leaf_kernel",
+                "mxu_leaf_kernel")
+ALL_WALKS = ("bvh", "grid", "kdtree", "wide", "fused", "deep", "leaf")
 
 
 def ptxas_table(log: str) -> dict:
     """{kernel: {registers, stack, spill_stores, spill_loads}} of the walk
     kernels from nvcc's `-Xptxas -v` output; a template instance is named
-    with its bool arguments (`wavefront_kernel<0,1>`: LINKS false, CODES
-    true)."""
+    with its bool and int arguments (`wavefront_kernel<0,1>`: LINKS false,
+    CODES true; `mxu_leaf_kernel<64>`: m)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
@@ -66,9 +76,9 @@ def ptxas_table(log: str) -> dict:
             found = [k for k in WALK_KERNELS if k in entry.group(1)]
             name = max(found, key=len) if found else None
             # a template instance: its bool arguments from the mangled name
-            inst = name and re.search(name + r"I((?:Lb[01]E)+)E", entry.group(1))
+            inst = name and re.search(name + r"I((?:L[bi]\d+E)+)", entry.group(1))
             if inst:
-                name += "<" + ",".join(re.findall(r"Lb([01])E", inst.group(1))) + ">"
+                name += "<" + ",".join(re.findall(r"L[bi](\d+)E", inst.group(1))) + ">"
             continue
         if name is None:
             continue
@@ -89,7 +99,9 @@ def main() -> int:
     ap.add_argument("--repo", default=HERE, help="checkout whose port to time")
     ap.add_argument("--label", default="")
     ap.add_argument("--json", help="also write the result to this file")
+    ap.add_argument("--walks", default=",".join(ALL_WALKS), help="rows to time (module docstring)")
     args = ap.parse_args()
+    chosen = set(args.walks.split(","))
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
     import torch
@@ -255,9 +267,60 @@ def main() -> int:
         print(f"{args.label} {row['walk']} {row['kernel']} {row['input']}: {row['rays']} rays, "
               f"{row['ms']:.4f} ms {extra}", flush=True)
 
+    def wide_rows(sc, sets, whitted0):
+        """The wide walk in pixel order and, where the checkout takes one,
+        in the camera's lane order; the any hit also on the arguments of a
+        Whitted host-route frame at level 0 (`whitted0`: scene, rays, t0,
+        mask)."""
+        import inspect
+
+        lanes = "perm" in inspect.signature(wide_bvh.closest_hit_wide).parameters
+        inputs = dict(sets)
+        if lanes:
+            inputs["primary, lane order"] = (*sets["primary"], perm)
+        inputs.pop("128 rays")
+        inputs["Whitted level 0"] = whitted0[1:]
+        if lanes:
+            inputs["Whitted level 0, lane order"] = (*whitted0[1:], perm)
+        for label, rays in inputs.items():
+            for fn in (wide_bvh.closest_hit_wide, wide_bvh.occluded_wide):
+                if label.startswith("Whitted") and fn is wide_bvh.closest_hit_wide:
+                    continue
+                got = fn(sc, *rays)
+                extra = (dict(steps=float(got["traversed"].float().mean()),
+                              tests=float(got["tested"].float().mean()))
+                         if isinstance(got, dict) else dict(occluded=int(got.sum())))
+                add(walk="wide", kernel=fn.__name__, input=label, rays=rays[0].shape[0],
+                    ms=time_ms(lambda: fn(sc, *rays)), device_ms=device_ms(lambda: fn(sc, *rays)),
+                    **extra)
+
+    def leaf_rows():
+        """K6 and K7 at every m on the probe's inputs."""
+        from cpu_ray_tracer_tpu_torch.benchmarks import mxu_probe
+        from cpu_ray_tracer_tpu_torch.ops import leaf_probe
+
+        inp = mxu_probe.inputs(mxu_probe.N_TILES, dev)
+        n = inp["comps"][0].numel()
+        fn = lambda: leaf_probe.vpu_leaf(inp["tris"], *inp["comps"])  # noqa: E731
+        add(walk="leaf", kernel="vpu_leaf", input="64 tiles", rays=n, ms=time_ms(fn),
+            device_ms=device_ms(fn))
+        for m in leaf_probe.WIDTHS:
+            c_tab, phi = inp["per_m"][m]
+            fn = lambda m=m, c=c_tab, p=phi: leaf_probe.mxu_leaf(c, p, m, inp["packed"][m])  # noqa: E731
+            add(walk="leaf", kernel=f"mxu_leaf m={m}", input="64 tiles", rays=n, ms=time_ms(fn),
+                device_ms=device_ms(fn))
+
     for acc, (kwargs, closest, anyhit, query_name) in walks.items():
+        if acc not in chosen:
+            continue
         sc = copy.deepcopy(compile_scene(xml, device="cpu", **kwargs)[0]).to(dev)
-        for label, rays in ray_sets(sc).items():
+        sets = ray_sets(sc)
+        a, kw = recorded(query, query_name, lambda: whitted.render(sc, camera, DEPTH, False))[0]
+        whitted0 = tuple(a[:5])  # scene and rays, without a lane order
+        if acc == "wide":
+            wide_rows(sc, sets, whitted0)
+            sets = {"128 rays": sets["128 rays"]}
+        for label, rays in sets.items():
             got = closest(sc, *rays)
             add(walk=acc, kernel=closest.__name__, input=label, rays=rays[0].shape[0],
                 ms=time_ms(lambda: closest(sc, *rays)),
@@ -268,15 +331,19 @@ def main() -> int:
                 ms=time_ms(lambda: anyhit(sc, *rays)),
                 device_ms=device_ms(lambda: anyhit(sc, *rays)),
                 occluded=int(anyhit(sc, *rays).sum()))
-        a, kw = recorded(query, query_name, lambda: whitted.render(sc, camera, DEPTH, False))[0]
-        add(walk=acc, kernel=anyhit.__name__, input="Whitted level 0", rays=a[1].shape[0],
-            ms=time_ms(lambda: anyhit(*a, **kw)),
-            device_ms=device_ms(lambda: anyhit(*a, **kw)), occluded=int(anyhit(*a, **kw).sum()))
-        if acc == "bvh":
+        if acc != "wide":
+            add(walk=acc, kernel=anyhit.__name__, input="Whitted level 0", rays=a[1].shape[0],
+                ms=time_ms(lambda: anyhit(*whitted0)),
+                device_ms=device_ms(lambda: anyhit(*whitted0)),
+                occluded=int(anyhit(*whitted0).sum()))
+        if acc == "bvh" and "fused" in chosen:
             fused_rows(sc)
         del sc
         torch.cuda.empty_cache()
-    deep_rows()
+    if "deep" in chosen:
+        deep_rows()
+    if "leaf" in chosen:
+        leaf_rows()
     result = dict(label=args.label, repo=os.path.relpath(repo, HERE), card=card,
                   device=torch.cuda.get_device_name(0), ptxas=ptxas,
                   build_seconds=lib.build_seconds, rows=rows)
