@@ -80,19 +80,25 @@ Scenes past the walk records' old limits (`scene/synthetic.py`):
 
 The TPU probes, on their own inputs (`cpu_ray_tracer_tpu_torch/benchmarks/`):
 
-7. the leaf-test probe: K6 (Moller-Trumbore per thread) on its 64 tiles of
-   4096 rays against its plain version, bit for bit; K7 (the same tests as
+7. the leaf-test probe: K6 (Moller-Trumbore per thread, division-free from
+   a packed normal) on its 64 tiles of 4096 rays and K7 (the same tests as
    a 3xTF32 tensor-core product) for m = 8, 32, 64, 128 on every ray of
-   the 64 tiles, within 1e-5 relative but for rays the float64 evaluation
-   explains (`leaf_tolerance.disagreements`; their count is printed);
-   times of both and, beside K7, of `torch.matmul` on the same product in
-   float32 (product only); the SASS of every `mxu_leaf_kernel<m>` holds
-   `HGMMA` (K7 runs on `wgmma`, `cuobjdump`); then one drive of
-   `mxu_probe.main`;
+   the 64 tiles, each within 1e-5 relative of its plain version but for
+   rays the float64 evaluation explains (`leaf_tolerance.disagreements`;
+   their count is printed, an unexplained ray fails); times of both and,
+   beside K7, of `torch.matmul` on the same product in float32 (product
+   only); K6's SASS instructions a test on its loop's hot path and the
+   issue floor they set (`cuobjdump`, the card's SMs and maximum SM
+   clock); the SASS of every `mxu_leaf_kernel<m>` holds `HGMMA` (K7 runs
+   on `wgmma`); then one drive of `mxu_probe.main`;
 8. the node-step probe: K8 for all ten variants on the 921,600 camera rays
-   of `bunny_teapot`'s TLAS tables, equal to its plain version; times; the
-   SASS of each variant holds its block-wide reductions (`cuobjdump`);
-   then one drive of `sync_probe.main` over all ten variants.
+   of `bunny_teapot`'s TLAS tables and on as many NaN-case rays
+   (`sync_probe.nan_rays`: origins on slab planes, a zero direction
+   component, some boxes flattened), equal to its plain version on both;
+   times; SASS instructions a ray-step and the issue floor; the SASS of
+   each variant holds its block-wide reductions and, but for A, the
+   NaN-propagating min / max of its slab test (`FMNMX.NAN`); then one drive
+   of `sync_probe.main` over all ten variants.
 
 Each drive of a main path (one pass or one frame, or one probe run) sets
 every kernel's launch count to 0 just before it and reads the counts just
@@ -113,7 +119,8 @@ kernel reads: `nodes`, `links`, `tris` and `shade` (or the wide nodes),
 never the walk records built from them (`node_records`, `link_records`,
 `tris4`: padded and, for the links, one copy per octant), so that the
 yardstick does not move with the layout.  For the
-probes, 58 operations per K6 test, K8's slab tests (32 with the count's
+probes, 58 operations per K6 test (the probe's arithmetic, whatever form
+the kernel computes the test in), K8's slab tests (32 with the count's
 add), and for K7 the larger of its three TF32 passes over 495 TFLOP/s and
 its 19 epilogue operations per test over 67 TFLOP/s (the tensor cores and
 the float32 units are separate pipes, which different warps keep busy at
@@ -158,6 +165,12 @@ SYNC_SLABS = dict(A=0, B=256, C=256, D=256, E1=2048, E2=2048, E8=2048, F0=2048, 
 # (sync_probe_kernel<V>): __syncthreads_or is BAR.RED, a warp sum REDUX
 SYNC_SASS = dict(C={"BAR.RED": 1}, D={"REDUX": 1}, E1={"REDUX": 1}, E2={"REDUX": 2},
                  E8={"BAR.RED": 8}, F0={"BAR.RED": 8}, F1={"BAR.RED": 8}, F2={"BAR.RED": 8})
+# the probe kernels' shapes (csrc/leaf_probe.cu, csrc/sync_probe.cu), for
+# the issue floors: K6 runs 2 rays a thread in blocks of 256 and tests 2
+# triangles a round of its loop; K8 runs a tile in one block of 1,024
+# threads of 4 rays
+VPU_RAYS_PER_BLOCK, VPU_TESTS_PER_LOOP = 512, 4
+SYNC_THREADS, SYNC_RAYS_PER_THREAD = 1024, 4
 
 
 def card() -> str:
@@ -196,6 +209,24 @@ def roofline(moved: int, t_ops: float) -> dict:
                 bytes=moved)
 
 
+def profiled_ms(fn, kernel: str, repeats: int = 10) -> float:
+    """Mean device ms per call of the kernels named `kernel` that `fn()`
+    launches (`torch.profiler`): the kernel alone, without the host time
+    of the wrapper around it, which a short kernel does not cover."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / repeats
+
+
 def timed_once(fn):
     """(fn's result, ms of that one call on the card)."""
     import torch
@@ -221,27 +252,81 @@ def bound(inputs: list, tables: list, got, counters: dict, slabs: int, n: int) -
     return dict(roofline(nbytes(*inputs, *tables, *outs), 1e3 * ops / F32_OPS_PER_S), ops=ops)
 
 
-def sass_counts(path: str, kernel: str, ops) -> dict:
-    """Per instantiation of the templated `kernel` in the library (its
-    template arguments as they are mangled, `ILi128EE` -> "128"): counts of
-    the SASS instructions `ops`."""
-    import re
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def sass_of(path: str) -> str:
+    """The SASS of the library at `path` (`cuobjdump -sass`)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", path],
+    return subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", path],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, v = {}, None
+
+
+def sass_functions(sass: str, kernel: str) -> dict:
+    """Per instantiation of the templated `kernel` (its template arguments
+    as they are mangled, `ILi128EE` -> "128"; "" for a plain function):
+    its SASS lines."""
+    import re
+
+    funcs, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(kernel + r"I((?:Li\d+E)+)E", line)
-            v = ",".join(re.findall(r"Li(\d+)E", found.group(1))) if found else None
-            if v is not None:
-                counts[v] = {}
-        elif v is not None:
-            for op in ops:
-                if op in line:
-                    counts[v][op] = counts[v].get(op, 0) + 1
-    return counts
+            name = line.split("Function :")[1].strip()
+            key = None
+            if kernel in name:
+                found = re.search(kernel + r"I((?:Li\d+E)+)E", name)
+                key = ",".join(re.findall(r"Li(\d+)E", found.group(1))) if found else ""
+                funcs[key] = []
+        elif key is not None:
+            funcs[key].append(line)
+    return funcs
+
+
+def sass_counts(sass: str, kernel: str, ops) -> dict:
+    """Per instantiation of `kernel` (`sass_functions`): counts of the SASS
+    instructions `ops`."""
+    return {key: {op: n for op in ops if (n := sum(op in line for line in lines))}
+            for key, lines in sass_functions(sass, kernel).items()}
+
+
+def loop_instructions(sass: str, kernel: str) -> dict:
+    """Per instantiation of `kernel` (`sass_functions`): the SASS
+    instructions of its main loop (the one the last backward branch
+    closes: the probes' loops over triangles and steps come last) on the
+    hot path, that is without NOPs and without the largest region a
+    predicated forward branch inside the loop skips (the rare accept of K6,
+    the leaf loop of F1 and F2)."""
+    import re
+
+    out = {}
+    for key, lines in sass_functions(sass, kernel).items():
+        code = [(int(m.group(1), 16), m.group(2).strip()) for line in lines
+                if (m := re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line))]
+        at = {addr: i for i, (addr, _) in enumerate(code)}
+        branches = [(i, int(m.group(1), 16)) for i, (_, text) in enumerate(code)
+                    if (m := re.search(r"\bBRA\s+(?:!?U?P\w+,\s*)?0x([0-9a-f]+)", text))]
+        start, end = [(at[t], i) for i, t in branches if t < code[i][0] and t in at][-1]
+        skips = [range(i + 1, at[t]) for i, t in branches
+                 if start <= i < end and code[i][0] < t <= code[end][0] and t in at
+                 and code[i][1].startswith("@")]
+        cold = max(skips, key=len, default=range(0))
+        out[key] = sum(1 for i in range(start, end + 1)
+                       if i not in cold and not code[i][1].startswith("NOP"))
+    return out
+
+
+def issue_floor_ms(lane_instructions: float, blocks: int, sms: int, clock_hz: float) -> float:
+    """The least time the card could issue a call whose `blocks` equal
+    blocks each take `lane_instructions` (per-thread instructions summed
+    over the block's threads): the busiest SM's blocks over its 4
+    schedulers x 32 lanes an instruction each per clock."""
+    return 1e3 * -(-blocks // sms) * lane_instructions / (4 * 32 * clock_hz)
 
 
 def compare(name: str, label: str, kernel, plain, n: int, work=None) -> dict:
@@ -879,22 +964,40 @@ def main() -> int:
 
     # --- 7. the leaf-test probe: K6 and K7 --------------------------------
     probes = []  # (name, source, replaces, result) of each probe kernel
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    sass = sass_of(k.path)
     leaf_in = mxu_probe.inputs(mxu_probe.N_TILES, dev)
     tris, comps = leaf_in["tris"], leaf_in["comps"]
     n_leaf = comps[0].numel()
-    got = leaf_probe.vpu_leaf(tris, *comps)
+    got = mxu_probe.vpu(leaf_in)
     want, plain_ms = timed_once(lambda: leaf_probe.vpu_leaf_plain(tris, *comps))
-    mismatch = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    if mismatch:
-        raise AssertionError(f"vpu_leaf: {mismatch} of {n_leaf} outputs differ from its plain version")
-    ms = time_cuda(lambda: leaf_probe.vpu_leaf(tris, *comps), KERNEL_REPEATS)
+    beyond, bad = leaf_tolerance.disagreements(
+        got, want, lambda r: leaf_tolerance.vpu_quantities(tris, comps, r), with_uv=True)
+    inside = torch.ones(got.numel(), dtype=torch.bool, device=dev)
+    inside[beyond.to(dev)] = False
+    err = float((got.reshape(-1) - want.reshape(-1))[inside].abs().max())
+    ms = time_cuda(lambda: mxu_probe.vpu(leaf_in), KERNEL_REPEATS)
     tests = n_leaf * tris.shape[0] * 8
     b = roofline(nbytes(tris, *comps, got), 1e3 * MT_OPS * tests / F32_OPS_PER_S)
-    print(f"vpu_leaf (K6): {n_leaf} rays x {tris.shape[0] * 8} triangles, bit-equal, hits "
-          f"{int((got < 1e29).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-          f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_ms'] / ms:.4f}")
+    per_test = loop_instructions(sass, "vpu_leaf_kernel")[""] / VPU_TESTS_PER_LOOP
+    blocks = -(-n_leaf // VPU_RAYS_PER_BLOCK)
+    floor = issue_floor_ms(per_test * VPU_RAYS_PER_BLOCK * tris.shape[0] * 8, blocks, sms,
+                           clock_hz)
+    print(f"vpu_leaf (K6): {n_leaf} rays x {tris.shape[0] * 8} triangles, not bit-equal on "
+          f"{int((got != want).sum())}, beyond 1e-5 relative {beyond.numel()} (explained by "
+          f"the float64 evaluation: {beyond.numel() - bad.numel()}), max abs err of the rest "
+          f"{err:.3g}, hits {int((got < 1e29).sum())}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({MT_OPS} "
+          f"operations a test), share {b['bound_ms'] / ms:.4f}; SASS "
+          f"{per_test:.2f} instructions a test on the loop's hot path, issue floor "
+          f"{floor:.4f} ms ({sms} SMs x 4 x 32 lanes at {clock_hz / 1e6:.0f} MHz): the kernel "
+          f"issues at {floor / ms:.4f} of that rate")
+    if bad.numel():
+        raise AssertionError(f"vpu_leaf: {bad.numel()} rays beyond tolerance and not "
+                             f"borderline, e.g. {bad[:8].tolist()}")
     probes.append(("vpu_leaf", "leaf_probe.cu", "benchmarks/mxu_probe.py:174",
-                   dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)))
+                   dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)))
     for m in leaf_probe.WIDTHS:
         c_tab, phi = leaf_in["per_m"][m]
         packed = leaf_in["packed"][m]
@@ -930,7 +1033,7 @@ def main() -> int:
         probes.append((f"mxu_leaf m={m}", "leaf_probe.cu", "benchmarks/mxu_probe.py:193",
                        dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, product_only_ms=mm_ms, **b)))
     # K7 runs on wgmma: every instance of mxu_leaf_kernel<m> holds HGMMA
-    hgmma = sass_counts(k.path, "mxu_leaf_kernel", ("HGMMA",))
+    hgmma = sass_counts(sass, "mxu_leaf_kernel", ("HGMMA",))
     print(f"  SASS mxu_leaf_kernel<m>: {hgmma}")
     for m in leaf_probe.WIDTHS:
         if not any(key.split(",")[0] == str(m) for key in hgmma):
@@ -947,27 +1050,47 @@ def main() -> int:
 
     # --- 8. the node-step probe: K8, every variant ------------------------
     sync_in = sync_bench.inputs(sync_bench.N_TILES, dev)
+    nan_in = sync_bench.nan_rays(sync_in, sync_bench.N_TILES)
     aabb, links, rays = sync_in["aabb"], sync_in["links"], sync_in["comps"]
     n_sync = rays[0].numel()
-    for variant in sync_probe.VARIANTS:
+    steps = loop_instructions(sass, "sync_probe_kernel")
+    for i, variant in enumerate(sync_probe.VARIANTS):
         got = sync_bench.run(sync_in, variant)
         want, plain_ms = timed_once(
             lambda v=variant: sync_probe.node_walk_plain(aabb, links, rays, v))
         bad = int((got != want).sum())
-        if bad:
-            raise AssertionError(f"node_walk {variant}: {bad} of {n_sync} outputs differ")
+        nan_got = sync_bench.run(nan_in, variant)
+        nan_bad = int((nan_got != sync_probe.node_walk_plain(
+            nan_in["aabb"], nan_in["links"], nan_in["comps"], variant)).sum())
+        if bad or nan_bad:
+            raise AssertionError(f"node_walk {variant}: {bad} of {n_sync} outputs differ on the "
+                                 f"camera rays, {nan_bad} on the NaN-case rays")
         ms = time_cuda(lambda v=variant: sync_bench.run(sync_in, v), KERNEL_REPEATS)
         slabs = SYNC_SLABS[variant]
         b = roofline(nbytes(aabb, links, got, *(rays if slabs else [])),
                      1e3 * (SLAB_OPS + 1) * slabs * n_sync / F32_OPS_PER_S)
         ns_step = 1e6 * ms / (sync_bench.N_TILES * sync_probe.STEPS)
-        print(f"node_walk (K8) {variant}: {n_sync} rays, equal, output range "
-              f"[{float(got.min()):g}, {float(got.max()):g}], kernel {ms:.4f} ms "
-              f"({ns_step:.3f} ns/step), plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms "
-              f"by {b['bound_by']}, share {b['bound_ms'] / ms:.4f}")
+        per_step = steps[str(i)] / (4 if variant == "D" else 1)  # D's loop holds 4 steps
+        walkers = 32 if variant == "A" else SYNC_THREADS  # one warp walks A's cursor
+        floor = issue_floor_ms(per_step * walkers * sync_probe.STEPS, sync_bench.N_TILES, sms,
+                               clock_hz)
+        # A's kernel is shorter than its wrapper's host time, which the
+        # events then measure: its device time beside them
+        device = ""
+        if variant == "A":
+            a_ms = profiled_ms(lambda: sync_bench.run(sync_in, "A"), "sync_probe_kernel")
+            device = f", device {a_ms:.4f} ms"
+        print(f"node_walk (K8) {variant}: {n_sync} rays, equal, and equal on as many NaN-case "
+              f"rays, output range [{float(got.min()):g}, {float(got.max()):g}], kernel "
+              f"{ms:.4f} ms ({ns_step:.3f} ns/step){device}, "
+              f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+              f"share {b['bound_ms'] / ms:.4f}; SASS {per_step / SYNC_RAYS_PER_THREAD:.2f} "
+              f"instructions a ray-step (a thread's step over its {SYNC_RAYS_PER_THREAD} rays: "
+              f"{per_step:.0f}), issue floor {floor:.4f} ms (the busiest SM's tiles): the "
+              f"kernel issues at {floor / ms:.4f} of that rate")
         probes.append((f"node_walk {variant}", "sync_probe.cu", "benchmarks/sync_probe.py:281",
                        dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b)))
-    counts = sass_counts(k.path, "sync_probe_kernel", ("BAR.RED", "REDUX", "BAR.SYNC"))
+    counts = sass_counts(sass, "sync_probe_kernel", ("BAR.RED", "REDUX", "BAR.SYNC", "FMNMX.NAN"))
     for i, variant in enumerate(sync_probe.VARIANTS):
         have = counts.get(str(i), {})
         print(f"  SASS sync_probe_kernel<{variant}>: {have}")
@@ -975,6 +1098,10 @@ def main() -> int:
             if have.get(op, 0) < need:
                 raise AssertionError(f"node_walk {variant}: {have.get(op, 0)} {op} in its SASS, "
                                      f"its block-wide reductions need {need}")
+        # the slab test's min / max propagate NaN (PTX min.NaN / max.NaN)
+        if variant != "A" and have.get("FMNMX.NAN", 0) < 10:
+            raise AssertionError(f"node_walk {variant}: {have.get('FMNMX.NAN', 0)} FMNMX.NAN in "
+                                 f"its SASS: the slab test's min / max must propagate NaN")
     sync_probe.node_walk.launches = dict.fromkeys(sync_probe.VARIANTS, 0)
     sync_bench.main(sync_probe.VARIANTS, dev)
     torch.cuda.synchronize()
@@ -1002,7 +1129,8 @@ def main() -> int:
                                per_frame=default_frame.get(key, 0) / FRAMES) for key in kernels}
     redesigned = dict(closest_hit=5, occluded=5, closest_hit_links=5, occluded_links=5,
                       wavefront_pt=6, whitted_wf=6, closest_hit_wide=7, occluded_wide=7,
-                      **{f"mxu_leaf m={m}": 7 for m in leaf_probe.WIDTHS})
+                      **{f"mxu_leaf m={m}": 7 for m in leaf_probe.WIDTHS}, vpu_leaf=8,
+                      **{f"node_walk {v}": 8 for v in sync_probe.VARIANTS})
     entries = [dict(name=key, source=src, replaces=f"cpu_ray_tracer_tpu/{tpu}",
                     launches=launches[key], main=main_launches[key], result=res[key])
                for key, (src, tpu) in sources.items()]

@@ -39,8 +39,9 @@ ROWS = 64  # rows of 8 triangles: the VPU variant's flushes
 def inputs(tiles: int = N_TILES, device=device_mod.DEFAULT) -> dict:
     """The probe's inputs, drawn in the JAX probe's order: tris [64, 128],
     the six ray components [tiles, 32, 128], and per m C [16m, 16] and Phi
-    [tiles, 16, 4096]; `packed` holds each (C, Phi) in K7's layouts
-    (`leaf_probe.pack`), made once here so that no timed call pays it."""
+    [tiles, 16, 4096]; `vpu_packed` holds the triangles in K6's layout
+    (`leaf_probe.pack_vpu`) and `packed` each (C, Phi) in K7's
+    (`leaf_probe.pack`), made once here so that no timed call pays them."""
     dev = device_mod.resolve(device)
     rng = np.random.default_rng(0)
 
@@ -51,12 +52,13 @@ def inputs(tiles: int = N_TILES, device=device_mod.DEFAULT) -> dict:
     comps = [draw(tiles, *TS) for _ in range(6)]
     per_m = {m: (draw(16 * m, 16), draw(tiles, 16, leaf_probe.TILE)) for m in leaf_probe.WIDTHS}
     packed = {m: leaf_probe.pack(c_tab, phi, m) for m, (c_tab, phi) in per_m.items()}
-    return dict(tris=tris, comps=comps, per_m=per_m, packed=packed)
+    return dict(tris=tris, comps=comps, per_m=per_m, packed=packed,
+                vpu_packed=leaf_probe.pack_vpu(tris))
 
 
 def vpu(inp: dict) -> torch.Tensor:
     """K6 on the probe's inputs: t + u + v + slot [tiles, 32, 128]."""
-    return leaf_probe.vpu_leaf(inp["tris"], *inp["comps"])
+    return leaf_probe.vpu_leaf(inp["tris"], *inp["comps"], packed=inp["vpu_packed"])
 
 
 def mxu(inp: dict, m: int) -> torch.Tensor:

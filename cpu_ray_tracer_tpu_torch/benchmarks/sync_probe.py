@@ -27,6 +27,7 @@ import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 from cpu_ray_tracer_tpu_torch.benchmarks.mxu_probe import timed
@@ -44,8 +45,9 @@ TILE_SHAPE = (sync_probe.TILE // 128, 128)
 
 
 def inputs(tiles: int = N_TILES, device=device_mod.DEFAULT, xml: str = XML) -> dict:
-    """The probe's tables (aabb [6, M], octant-0 links [2, M]) and the
-    first `tiles` tiles of the camera's rays as six components
+    """The probe's tables (aabb [6, M], octant-0 links [2, M], and the
+    kernel's `records`, built once here so that no timed call pays it) and
+    the first `tiles` tiles of the camera's rays as six components
     [tiles, 32, 128], in the JAX probe's order."""
     dev = device_mod.resolve(device)
     aabb, links = tlas_node_tables(xml)
@@ -53,13 +55,69 @@ def inputs(tiles: int = N_TILES, device=device_mod.DEFAULT, xml: str = XML) -> d
     o, d = cam_mod.full_frame_rays(cam, device=dev)
     comps = [x[:, axis].reshape(N_TILES, *TILE_SHAPE)[:tiles].contiguous()
              for x in (o, d) for axis in range(3)]
-    return dict(aabb=torch.from_numpy(aabb).to(dev),
-                links=torch.from_numpy(links[0]).contiguous().to(dev), comps=comps)
+    aabb, links = torch.from_numpy(aabb).to(dev), torch.from_numpy(links[0]).contiguous().to(dev)
+    return dict(aabb=aabb, links=links, records=sync_probe.node_records(aabb, links), comps=comps)
+
+
+NAN_FLAT = 64  # nodes whose boxes `nan_rays` flattens
+
+
+def nan_rays(inp: dict, tiles: int, seed: int = 0) -> dict:
+    """`inp` with `tiles` tiles of rays on which the slab test meets NaN,
+    and tables where that decides the step.  Each ray starts inside a
+    node's box, on one of its slab planes, with that direction component
+    zero, so (b - o) * (1 / 0) is 0 * inf = NaN on that axis.  Where the
+    box has depth on the axis, the other plane gives -inf or inf and the
+    test misses however NaN is treated; so the boxes of `NAN_FLAT` nodes are
+    flattened onto their min plane of one axis, as a planar leaf's box
+    is, and half of the rays start on those planes: there both bounds are
+    NaN, which jnp.minimum / maximum carry to a miss and fminf / fmaxf
+    would drop to a hit.  The nodes are drawn (from `seed`, with numpy)
+    half from the cursor paths that take the hit link at every node or at
+    the even ones (A and B's path), half from nodes 0-1023, which the E
+    and F variants read."""
+    aabb = inp["aabb"].cpu().numpy().copy()
+    links = inp["links"].cpu().numpy()
+    paths = set()
+    for take_hit in (lambda n: True, lambda n: n % 2 == 0):
+        cur = 0
+        for _ in range(sync_probe.STEPS):
+            if cur < 0:
+                break
+            paths.add(cur)
+            cur = int(links[0, cur] if take_hit(cur) else links[1, cur])
+    paths = np.array(sorted(paths))
+    rng = np.random.default_rng(seed)
+
+    def draw(k):
+        return np.where(rng.random(k) < 0.5, paths[rng.integers(0, len(paths), k)],
+                        rng.integers(0, sync_probe.NODE_MASK + 1, k))
+
+    flat_nodes = np.unique(draw(NAN_FLAT))
+    flat_axis = rng.integers(0, 3, len(flat_nodes))
+    aabb[3 + flat_axis, flat_nodes] = aabb[flat_axis, flat_nodes]
+    n = tiles * sync_probe.TILE
+    on_flat = rng.random(n) < 0.5
+    pick = rng.integers(0, len(flat_nodes), n)
+    node = np.where(on_flat, flat_nodes[pick], draw(n))
+    axis = np.where(on_flat, flat_axis[pick], rng.integers(0, 3, n))
+    side = np.where(on_flat, 0, rng.integers(0, 2, n))
+    lo, hi = aabb[:3, node], aabb[3:, node]
+    o = lo + rng.random((3, n)) * (hi - lo)
+    d = rng.normal(size=(3, n))
+    rows = np.arange(n)
+    o[axis, rows] = np.where(side == 0, lo[axis, rows], hi[axis, rows])
+    d[axis, rows] = 0.0
+    dev = inp["aabb"].device
+    comps = [torch.from_numpy(x.astype(np.float32).reshape(tiles, *TILE_SHAPE)).to(dev)
+             for x in (*o, *d)]
+    box = torch.from_numpy(aabb).to(dev)
+    return dict(inp, aabb=box, records=sync_probe.node_records(box, inp["links"]), comps=comps)
 
 
 def run(inp: dict, variant: str) -> torch.Tensor:
     """The probe's walk for one variant: out [tiles, 32, 128]."""
-    return sync_probe.node_walk(inp["aabb"], inp["links"], inp["comps"], variant)
+    return sync_probe.node_walk(inp["aabb"], inp["links"], inp["comps"], variant, inp["records"])
 
 
 def main(variants=sync_probe.DEFAULT_VARIANTS, device=device_mod.DEFAULT) -> dict:

@@ -3,17 +3,37 @@
 // (K6) and once as a matrix product on the tensor cores (K7).
 //
 // K6 replaces the TPU kernel `make_vpu_kernel` of benchmarks/mxu_probe.py:65
-// (launched at :174): 64 rows of 8 triangle records (v0, e1, e2 in floats
-// 0-8 of each 16-float record), tested in row order against every ray; the
-// strict `tt < t` keeps the first of equal hits; out = t + u + v + slot
-// (1e30 where nothing is hit).  One thread per ray.  The 512 records' nine
-// used floats (18 KB) are staged once per block in shared memory, and all
-// threads read the same record at the same time: a broadcast.  The test is
-// the walks' `moller_trumbore` (csrc/ptraverse.cuh), whose arithmetic and
-// order are the probe's (mxu_probe.py:78-97); built with -fmad=false, the
-// result equals `vpu_leaf_plain` (ops/leaf_probe.py) bit for bit.  Bound
-// on an H100: float32 operations (58 per test, as the walks' test, 134M
-// tests), not bytes (7 MB).
+// (launched at :174): 64 rows of 8 triangle records, tested in row order
+// against every ray; the strict `tt < t` keeps the first of equal hits;
+// out = t + u + v + slot (1e30 where nothing is hit).  Bound on an H100:
+// float32 operations (58 per test as the probe writes it, 134M tests),
+// not bytes (7 MB); but a test written that way issues about 75
+// instructions unfused (no FMA, an IEEE reciprocal), and the first port
+// ran within about a quarter of the issue floor that sets.  This kernel
+// issues fewer instructions per test (PERF.md has the SASS counts and
+// times):
+//  * the wrapper packs each triangle once as four float4 (v0, n.x),
+//    (e1, n.y), (e2, n.z), (v0 . n) with n = e1 x e2 (ops/leaf_probe.py
+//    pack_vpu), and each ray keeps m = o x d; then c = s x d = m - v0 x d
+//    (s = o - v0), and the test's four quantities are a = -(d . n),
+//    u*a = e2 . c, v*a = -(e1 . c), t*a = o . n - v0 . n: 18 FMAs and
+//    multiplies (written with __fmaf_rn: the file keeps -fmad=false for
+//    K7's epilogue; forming s first took 8% longer);
+//  * no division per test: a's sign is folded into u*a, v*a and t*a by an
+//    XOR, and the test accepts when |a| >= 1e-4, U, V >= 0, U + V <= |a|
+//    (which implies U <= |a| in float32 as well: U <= fl(U + V)) and
+//    1e-4 |a| < T < t_best |a|; only an accept, which is rare, divides
+//    (t_best = T / |a|), and u, v are divided out once per ray at the end;
+//  * two rays a thread and two triangles a round: each broadcast of a
+//    triangle's 16-byte shared loads feeds two tests, four tests are in
+//    flight, and one branch serves the four (a branch each took 16%
+//    longer; four rays a thread and one triangle a round, 7%).
+// The contract: the kernel is NOT bit-equal to `vpu_leaf_plain` (which
+// keeps the probe's arithmetic).  Like K7, it is held to it by the float64
+// rule `benchmarks/leaf_tolerance.disagreements` (rtol 1e-5, tol 1e-5):
+// every ray beyond rtol must be one whose decision the float64 evaluation
+// shows too close to call, or whose output is the float64 winner's
+// within the rule's moves.
 //
 // K7 replaces `make_mxu_kernel(m)` of benchmarks/mxu_probe.py:110
 // (launched at :193): per flush i the product C[4m, 16] @ Phi[16, 4096]
@@ -47,39 +67,115 @@
 namespace {
 
 constexpr int TILE = 4096;  // rays per tile
-constexpr int RECORD = 16;  // floats per triangle record
-constexpr int USED = 9;     // v0, e1, e2
 constexpr int VPU_THREADS = 256;
+constexpr int VPU_RAYS = 2;  // rays per thread
 
 // ---- K6 ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(VPU_THREADS)
-vpu_leaf_kernel(const float* __restrict__ tris, int n_tris, const float* __restrict__ ox,
+// One ray's state in K6: its origin, direction and m = o x d, and the best
+// hit so far as t, the sign-folded u*a and v*a with their |a|, and the
+// slot.
+struct LeafRay {
+  float ox, oy, oz, dx, dy, dz, mx, my, mz, t, ua, va, a;
+  int slot;
+};
+
+// One test's quantities with a's sign folded in (|a|, u*a, v*a, t*a), and
+// whether it passes every check but the one against the ray's best t.
+struct LeafTest {
+  float aa, u, v, t;
+  bool pre;
+};
+
+__device__ __forceinline__ float flip(float x, unsigned sign) {
+  return __uint_as_float(__float_as_uint(x) ^ sign);
+}
+
+// Triangle (v0 n.x | e1 n.y | e2 n.z | v0 . n) against ray r: with
+// c = s x d = m - v0 x d, a = -(d . n), u*a = e2 . c, v*a = -(e1 . c) and
+// t*a = o . n - v0 . n.
+__device__ __forceinline__ LeafTest leaf_test(const float4& p0, const float4& p1,
+                                              const float4& p2, float w, const LeafRay& r) {
+  const float cx = __fmaf_rn(-p0.y, r.dz, __fmaf_rn(p0.z, r.dy, r.mx));
+  const float cy = __fmaf_rn(-p0.z, r.dx, __fmaf_rn(p0.x, r.dz, r.my));
+  const float cz = __fmaf_rn(-p0.x, r.dy, __fmaf_rn(p0.y, r.dx, r.mz));
+  const float a = __fmaf_rn(-r.dz, p2.w, __fmaf_rn(-r.dy, p1.w, -r.dx * p0.w));
+  const float ua = __fmaf_rn(p2.z, cz, __fmaf_rn(p2.y, cy, p2.x * cx));
+  const float va = __fmaf_rn(-p1.z, cz, __fmaf_rn(-p1.y, cy, -p1.x * cx));
+  const float ta = __fmaf_rn(r.oz, p2.w, __fmaf_rn(r.oy, p1.w, __fmaf_rn(r.ox, p0.w, -w)));
+  const unsigned sign = __float_as_uint(a) & 0x80000000u;
+  LeafTest q;
+  q.aa = fabsf(a);
+  q.u = flip(ua, sign);
+  q.v = flip(va, sign);
+  q.t = flip(ta, sign);
+  q.pre = q.aa >= crt::TRI_EPS && q.u >= 0.0f && q.v >= 0.0f && q.u + q.v <= q.aa &&
+          q.t > crt::TRI_EPS * q.aa;  // the walks' epsilon, the probe's 1e-4
+  return q;
+}
+
+__device__ __forceinline__ bool nearer(const LeafTest& q, const LeafRay& r) {
+  return q.pre && q.t < r.t * q.aa;
+}
+
+__device__ __forceinline__ void keep(const LeafTest& q, int k, LeafRay& r) {
+  r.t = __fdiv_rn(q.t, q.aa);
+  r.ua = q.u;
+  r.va = q.v;
+  r.a = q.aa;
+  r.slot = k;
+}
+
+// 64 registers, so that four blocks fit an SM and the 512 blocks of the
+// probe's 262,144 rays run in one wave (76 registers and three blocks a
+// SM took 5% longer)
+__global__ void __launch_bounds__(VPU_THREADS, 4)
+vpu_leaf_kernel(const float4* __restrict__ tris, int n_tris, const float* __restrict__ ox,
                 const float* __restrict__ oy, const float* __restrict__ oz,
                 const float* __restrict__ dx, const float* __restrict__ dy,
                 const float* __restrict__ dz, int n, float* __restrict__ out) {
-  extern __shared__ float s_tri[];  // [n_tris][9]
-  for (int i = threadIdx.x; i < n_tris * USED; i += blockDim.x) {
-    s_tri[i] = __ldg(tris + (i / USED) * RECORD + i % USED);
-  }
+  extern __shared__ float4 s_tri[];  // [n_tris][4]
+  for (int i = threadIdx.x; i < 4 * n_tris; i += VPU_THREADS) s_tri[i] = __ldg(tris + i);
   __syncthreads();
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const crt::Ray ray = crt::make_ray(__ldg(ox + r), __ldg(oy + r), __ldg(oz + r), __ldg(dx + r),
-                                     __ldg(dy + r), __ldg(dz + r));
-  const crt::Tri* tri = reinterpret_cast<const crt::Tri*>(s_tri);
-  float t = 1e30f, u = 0.0f, v = 0.0f;
-  int slot = -1;
-  for (int k = 0; k < n_tris; ++k) {
-    float uu, vv, tt;
-    if (crt::moller_trumbore(tri[k], ray, t, uu, vv, tt)) {
-      t = tt;
-      u = uu;
-      v = vv;
-      slot = k;
+  const int first = blockIdx.x * VPU_RAYS * VPU_THREADS + threadIdx.x;
+  LeafRay ray[VPU_RAYS];
+#pragma unroll
+  for (int j = 0; j < VPU_RAYS; ++j) {
+    const int i = min(first + j * VPU_THREADS, n - 1);
+    const float x = __ldg(ox + i), y = __ldg(oy + i), z = __ldg(oz + i);
+    const float u = __ldg(dx + i), v = __ldg(dy + i), w = __ldg(dz + i);
+    ray[j] = LeafRay{x, y, z, u, v, w, __fmaf_rn(y, w, -(z * v)), __fmaf_rn(z, u, -(x * w)),
+                     __fmaf_rn(x, v, -(y * u)), 1e30f, 0.0f, 0.0f, 1.0f, -1};
+  }
+  // two triangles a round (n_tris is even); each ray takes k, then k + 1
+#pragma unroll 1
+  for (int k = 0; k < n_tris; k += 2) {
+    const float4* p = s_tri + 4 * k;
+    const float pw = reinterpret_cast<const float*>(p + 3)[0];
+    const float qw = reinterpret_cast<const float*>(p + 7)[0];
+    const LeafTest a0 = leaf_test(p[0], p[1], p[2], pw, ray[0]);
+    const LeafTest a1 = leaf_test(p[0], p[1], p[2], pw, ray[1]);
+    const LeafTest b0 = leaf_test(p[4], p[5], p[6], qw, ray[0]);
+    const LeafTest b1 = leaf_test(p[4], p[5], p[6], qw, ray[1]);
+    // one branch for the four tests (a branch each measured 8% slower):
+    // accepts are rare, and only a test that passes against the best t
+    // before the round can pass against a t the round lowered
+    if (nearer(a0, ray[0]) || nearer(b0, ray[0]) || nearer(a1, ray[1]) || nearer(b1, ray[1])) {
+      if (nearer(a0, ray[0])) keep(a0, k, ray[0]);
+      if (nearer(b0, ray[0])) keep(b0, k + 1, ray[0]);
+      if (nearer(a1, ray[1])) keep(a1, k, ray[1]);
+      if (nearer(b1, ray[1])) keep(b1, k + 1, ray[1]);
     }
   }
-  out[r] = t + u + v + static_cast<float>(slot);
+#pragma unroll
+  for (int j = 0; j < VPU_RAYS; ++j) {
+    const LeafRay& r = ray[j];
+    const bool hit = r.slot >= 0;
+    const float u = hit ? __fdiv_rn(r.ua, r.a) : 0.0f, v = hit ? __fdiv_rn(r.va, r.a) : 0.0f;
+    if (first + j * VPU_THREADS < n) {
+      out[first + j * VPU_THREADS] = r.t + u + v + static_cast<float>(r.slot);
+    }
+  }
 }
 
 // ---- K7 ---------------------------------------------------------------
@@ -518,16 +614,19 @@ int launch_mxu(const float* c_frag, const float* phi_rm, int n_tiles, float* out
 
 extern "C" {
 
-// K6: tris [n_tris / 8, 128] (8 records of 16 floats per row), the six ray
-// components [n] each, out [n].  n_tris * 36 bytes of shared memory.
-int crt_vpu_leaf(const float* tris, int n_tris, const float* ox, const float* oy,
+// K6: packed [n_tris, 16] (ops/leaf_probe.py pack_vpu; n_tris even), the
+// six ray components [n] each, out [n].  n_tris * 64 bytes of shared
+// memory.
+int crt_vpu_leaf(const float* packed, int n_tris, const float* ox, const float* oy,
                  const float* oz, const float* dx, const float* dy, const float* dz, int n,
                  float* out, void* stream) {
+  if (n_tris % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    const int blocks = (n + VPU_THREADS - 1) / VPU_THREADS;
-    const size_t smem = static_cast<size_t>(n_tris) * USED * sizeof(float);
+    const int per_block = VPU_RAYS * VPU_THREADS;
+    const int blocks = (n + per_block - 1) / per_block;
+    const size_t smem = static_cast<size_t>(n_tris) * 4 * sizeof(float4);
     vpu_leaf_kernel<<<blocks, VPU_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        tris, n_tris, ox, oy, oz, dx, dy, dz, n, out);
+        reinterpret_cast<const float4*>(packed), n_tris, ox, oy, oz, dx, dy, dz, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -106,7 +106,7 @@ _SIGNATURES = {
         _ptr, _ptr,  # out, stream
     ],
     "crt_sync_probe": [
-        _ptr, _ptr, _int,  # aabb, links, m
+        _ptr, _int,  # node records, m
         *[_ptr] * 6, _int, _int,  # ox, oy, oz, dx, dy, dz, n_tiles, variant
         _ptr, _ptr,  # out, stream
     ],

@@ -7,11 +7,14 @@ The ports of `make_vpu_kernel` and `make_mxu_kernel(m)` of the JAX
 package's probe `benchmarks/mxu_probe.py:65`, `:110` (launched at `:174`,
 `:193`); the kernels are `csrc/leaf_probe.cu`.
 
-    vpu_leaf(tris, ox, oy, oz, dx, dy, dz) -> out float32 [T, 32, 128]
+    vpu_leaf(tris, ox, oy, oz, dx, dy, dz, packed=None) -> out float32 [T, 32, 128]
         tris float32 [R, 128]: R rows of 8 records of 16 floats (v0, e1, e2
         in floats 0-8), tested in row order, slot = 8 * row + record; the
         ray components float32 [T, 32, 128]; out = t + u + v + slot of the
-        closest hit (1e30 where nothing is hit).
+        closest hit (1e30 where nothing is hit).  `packed` is
+        `pack_vpu(tris)`: each triangle as 16 floats (v0, n.x, e1, n.y, e2,
+        n.z, v0 . n and padding, with n = e1 x e2), made once per input by
+        the caller; None packs it in the call.
     mxu_leaf(c_tab, phi, m, packed=None) -> out float32 [T, 4096]
         c_tab float32 [16m, 16]: 4 groups of 4m rows (a, u*a, v*a, t*a of m
         triangles, quantity-major); phi float32 [T, 16, 4096]: the rays'
@@ -24,10 +27,12 @@ package's probe `benchmarks/mxu_probe.py:65`, `:110` (launched at `:174`,
 
 Each wrapper runs the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; there is no other fallback.  K6
-equals its plain version bit for bit.  K7's product is three TF32 passes
+computes each test from the packed normal without a division (a sign
+fold and cross-multiplied compares, FMA contracted) and K7's product is three TF32 passes
 and the plain version's is float64 rounded to float32, so the two agree to
-about 1e-6 relative, and a ray's slot can differ only where a decision is
-that close (`benchmarks/leaf_tolerance.py`).
+about 1e-6 relative: for both, a ray's output can differ from the plain
+version's only where the float64 evaluation shows a decision that close
+(`benchmarks/leaf_tolerance.py`).
 """
 
 from __future__ import annotations
@@ -86,9 +91,26 @@ def vpu_leaf_plain(tris, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
     return t + u + v + slot.to(torch.float32)
 
 
-def vpu_leaf(tris, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
+VPU_FLOATS = 16  # floats per packed triangle: four float4 of the kernel
+
+
+def pack_vpu(tris: torch.Tensor) -> torch.Tensor:
+    """K6's triangles, float32 [8R, 16]: per slot (v0, n.x), (e1, n.y),
+    (e2, n.z), (v0 . n, 0, 0, 0) as four float4, with the normal
+    n = e1 x e2 and v0 . n computed once here in float32."""
+    rec = tris.reshape(-1, RECORD)
+    v0, e1, e2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    w = (v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2])[:, None]
+    return torch.cat([v0, n[:, 0:1], e1, n[:, 1:2], e2, n[:, 2:3], w, torch.zeros_like(v0)],
+                     dim=1).contiguous()
+
+
+def vpu_leaf(tris, ox, oy, oz, dx, dy, dz, packed=None) -> torch.Tensor:
     """K6: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors."""
+    tensors, on `packed` (`pack_vpu(tris)`; packed here when None)."""
     if kernel_lib.on_cpu("vpu_leaf", ox):
         return vpu_leaf_plain(tris, ox, oy, oz, dx, dy, dz)
     shape = tuple(ox.shape)
@@ -96,14 +118,17 @@ def vpu_leaf(tris, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
         raise ValueError(f"vpu_leaf: tris [R, 128] and rays [T, 32, 128], got "
                          f"{tuple(tris.shape)} and {shape}")
     n_tris = tris.shape[0] * 8
-    if n_tris * 9 * 4 > 48 * 1024:
+    if n_tris * VPU_FLOATS * 4 > 48 * 1024:
         raise ValueError(f"vpu_leaf: {n_tris} triangles do not fit the kernel's shared memory")
+    if packed is None:
+        packed = pack_vpu(tris)
     comps = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz)
-    kernel_lib.require("vpu_leaf", ox.device, tris=(tris, torch.float32, None),
+    kernel_lib.require("vpu_leaf", ox.device, packed=(packed, torch.float32, (n_tris, VPU_FLOATS)),
                        **{k: (x, torch.float32, shape) for k, x in comps.items()})
+    kernel_lib.require_aligned("vpu_leaf", packed=packed)
     out = torch.empty(shape, dtype=torch.float32, device=ox.device)
     k = kernel_lib.load()
-    code = k.lib.crt_vpu_leaf(tris.data_ptr(), n_tris, *(x.data_ptr() for x in comps.values()),
+    code = k.lib.crt_vpu_leaf(packed.data_ptr(), n_tris, *(x.data_ptr() for x in comps.values()),
                               ox.numel(), out.data_ptr(), kernel_lib.stream(ox.device))
     kernel_lib.check(k.lib, code, "vpu_leaf")
     vpu_leaf.launches += 1

@@ -6,11 +6,13 @@ The port of `make_kernel(variant)` of the JAX package's probe
 `benchmarks/sync_probe.py:55` (launched by `run` at `:277`); the kernel is
 `csrc/sync_probe.cu`, whose header describes the variants.
 
-    node_walk(aabb, links, comps, variant) -> out float32 [T, 32, 128]
+    node_walk(aabb, links, comps, variant, records=None) -> out float32 [T, 32, 128]
         aabb float32 [6, M] (box min xyz, max xyz per node), links int32
         [2, M] (octant 0: hit, miss), comps the six ray components float32
         [T, 32, 128] (ox, oy, oz, dx, dy, dz), variant one of `VARIANTS`;
-        out = acc + cur (A-E), acc + t + (cur + sp) (F).
+        out = acc + cur (A-E), acc + t + (cur + sp) (F).  `records` is
+        `node_records(aabb, links)`, the kernel's table, made once per input
+        by the caller; None builds it in the call.
 
 The walk starts at node 0 in every variant, as the probe's.  The E and F
 variants read nodes (node + k) & 1023, so tables of fewer than 1,024
@@ -20,7 +22,9 @@ moves), and the kernel equals the plain version exactly.  The F variants
 are timing shapes of the TPU's wide kernel, not a function anyone needs.
 
 The wrapper runs the plain version for tensors on the CPU and launches the
-kernel for tensors on a CUDA device; there is no other fallback.
+kernel for tensors on a CUDA device; there is no other fallback.  The
+kernel reads one 32-byte record per node (`node_records`); the plain
+version reads the tables.
 """
 
 from __future__ import annotations
@@ -171,9 +175,19 @@ def node_walk_plain(aabb, links, comps, variant: str) -> torch.Tensor:
     return (acc + cur.float()[:, None]).reshape(shape)
 
 
-def node_walk(aabb, links, comps, variant: str) -> torch.Tensor:
+def node_records(aabb, links) -> torch.Tensor:
+    """The kernel's node table, int32 [M, 8]: per node one 32-byte record,
+    the box's min x, y, z and max x, y, z as float32 bits, then the hit
+    and the miss link."""
+    check_tables("node_records", aabb, links)
+    box = aabb.contiguous().view(torch.int32)
+    return torch.cat([box, links.to(torch.int32)], dim=0).t().contiguous()
+
+
+def node_walk(aabb, links, comps, variant: str, records=None) -> torch.Tensor:
     """The probe's walk: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors."""
+    for CUDA tensors, on `records` (`node_records(aabb, links)`; built here
+    when None)."""
     index = _variant(variant)
     if kernel_lib.on_cpu("node_walk", comps[0]):
         return node_walk_plain(aabb, links, comps, variant)
@@ -182,14 +196,15 @@ def node_walk(aabb, links, comps, variant: str) -> torch.Tensor:
     if len(shape) != 3 or shape[1] * shape[2] != TILE or len(comps) != 6:
         raise ValueError(f"node_walk: six ray components [T, 32, 128], got {len(comps)} of {shape}")
     dev = comps[0].device
-    kernel_lib.require("node_walk", dev, aabb=(aabb, torch.float32, None),
-                       links=(links, torch.int32, None),
+    if records is None:
+        records = node_records(aabb, links)
+    kernel_lib.require("node_walk", dev, records=(records, torch.int32, (m, 8)),
                        **{f"comps[{i}]": (c, torch.float32, shape) for i, c in enumerate(comps)})
+    kernel_lib.require_aligned("node_walk", records=records)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     k = kernel_lib.load()
-    code = k.lib.crt_sync_probe(aabb.data_ptr(), links.data_ptr(), m,
-                                *(c.data_ptr() for c in comps), shape[0], index, out.data_ptr(),
-                                kernel_lib.stream(dev))
+    code = k.lib.crt_sync_probe(records.data_ptr(), m, *(c.data_ptr() for c in comps), shape[0],
+                                index, out.data_ptr(), kernel_lib.stream(dev))
     kernel_lib.check(k.lib, code, f"node_walk {variant}")
     node_walk.launches[variant] += 1
     return out

@@ -458,14 +458,24 @@ def leaf_inputs(cuda):
 
 
 def test_vpu_leaf_kernel_matches_plain(leaf_inputs):
-    """K6: the probe's arithmetic in its order, -fmad=false: bit-equal."""
+    """K6 on every ray of the 64 tiles: the division-free test from the
+    packed normal, FMA contracted, against the probe's arithmetic; rays
+    beyond 1e-5 relative only where the float64 evaluation explains them
+    (`leaf_tolerance.disagreements`), packed in the call or once by the
+    caller alike."""
     tris, comps = leaf_inputs["tris"], leaf_inputs["comps"]
     before = leaf_probe.vpu_leaf.launches
     got = leaf_probe.vpu_leaf(tris, *comps)
     torch.cuda.synchronize()
     assert leaf_probe.vpu_leaf.launches == before + 1
+    assert torch.equal(mxu_probe.vpu(leaf_inputs), got)
     want = leaf_probe.vpu_leaf_plain(tris, *comps)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    beyond, bad = leaf_tolerance.disagreements(
+        got, want, lambda r: leaf_tolerance.vpu_quantities(tris, comps, r), with_uv=True)
+    print(f"K6: {beyond.numel()} of {got.numel()} rays beyond 1e-5 relative, all explained "
+          f"by the float64 evaluation but {bad.numel()}")
+    assert bad.numel() == 0, bad[:16].tolist()
+    assert beyond.numel() < 1e-3 * got.numel()
     assert 0.5 < float((got < 1e29).float().mean()) < 1.0
 
 
@@ -497,11 +507,13 @@ def sync_inputs(cuda):
 
 @pytest.mark.parametrize("variant", sync_probe.VARIANTS)
 def test_node_walk_kernel_matches_plain(sync_inputs, variant):
-    """K8, every variant, on the probe's full inputs: equal."""
-    before = sync_probe.node_walk.launches[variant]
-    got = sync_bench.run(sync_inputs, variant)
-    torch.cuda.synchronize()
-    assert sync_probe.node_walk.launches[variant] == before + 1
-    want = sync_probe.node_walk_plain(sync_inputs["aabb"], sync_inputs["links"],
-                                      sync_inputs["comps"], variant)
-    assert torch.equal(got, want)
+    """K8, every variant, on the probe's full inputs and on as many NaN-case
+    rays (`sync_probe.nan_rays`: origins on slab planes, a zero direction
+    component, flattened boxes): equal."""
+    for data in (sync_inputs, sync_bench.nan_rays(sync_inputs, sync_bench.N_TILES)):
+        before = sync_probe.node_walk.launches[variant]
+        got = sync_bench.run(data, variant)
+        torch.cuda.synchronize()
+        assert sync_probe.node_walk.launches[variant] == before + 1
+        want = sync_probe.node_walk_plain(data["aabb"], data["links"], data["comps"], variant)
+        assert torch.equal(got, want)

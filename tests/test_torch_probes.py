@@ -5,7 +5,8 @@ node-step walk (K8, `make_kernel(variant)`) of `benchmarks/sync_probe.py`,
 each run in its own `pl.pallas_call(..., interpret=True)` with the probe's
 block specs at 2 tiles, on the same inputs.
 
-K8's outputs are small integers in float32 (or 1e30) and must be equal.
+K8's outputs are small integers in float32 (or 1e30) and must be equal,
+on the camera's rays and on NaN-case rays (`sync_probe.nan_rays`).
 K6 and K7 are compared at rtol 1e-5; a ray beyond that passes only if a
 float64 evaluation explains it (`leaf_tolerance.explained`): moving each
 candidate's a, u*a, v*a, t*a by 1e-5 of its magnitude (the sum of its
@@ -185,26 +186,49 @@ def sync_inputs():
     return inp
 
 
-@pytest.mark.parametrize("variant", sync_probe.VARIANTS)
-def test_node_walk_plain_matches_jax_probe(jax_tables, sync_inputs, variant):
+def _jax_node_walk(aabb, links, comps, variant: str):
+    """The JAX probe's kernel in interpret mode on `TILES` tiles: aabb
+    [6, M], links [8, 2, M] (the probe reads octant 0), comps six numpy
+    arrays [TILES, 32, 128]."""
     mod = _jax_probe("sync_probe")
-    j_aabb, j_links = jax_tables
-    comps = sync_inputs["comps"]
     tile_spec = pl.BlockSpec((1, *mod.TILE_SHAPE), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
     smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    want = pl.pallas_call(
+    return np.asarray(pl.pallas_call(
         mod.make_kernel(variant), grid=(TILES,),
         out_shape=jax.ShapeDtypeStruct((TILES, *mod.TILE_SHAPE), jnp.float32),
         in_specs=[smem_spec, smem_spec] + [tile_spec] * 6, out_specs=tile_spec,
         scratch_shapes=[pltpu.SMEM((128,), jnp.int32)], interpret=True,
-    )(jnp.asarray(j_aabb), jnp.asarray(j_links), *(jnp.asarray(c.numpy()) for c in comps))
+    )(jnp.asarray(aabb), jnp.asarray(links), *(jnp.asarray(c) for c in comps)))
+
+
+@pytest.mark.parametrize("variant", sync_probe.VARIANTS)
+def test_node_walk_plain_matches_jax_probe(jax_tables, sync_inputs, variant):
+    j_aabb, j_links = jax_tables
+    want = _jax_node_walk(j_aabb, j_links, [c.numpy() for c in sync_inputs["comps"]], variant)
     got = sync_bench.run(sync_inputs, variant)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), want)
     if variant[0] == "F":
         # timing shapes: t never moves off 1e30, which swamps acc + cur + sp
         assert bool((got == np.float32(1e30)).all())
     elif variant != "A":
         assert float(got.max()) > 100.0  # the middle tiles' rays hit boxes
+
+
+@pytest.mark.parametrize("variant", ("B", "C", "E8"))
+def test_node_walk_plain_matches_jax_probe_on_nan_rays(sync_inputs, variant, monkeypatch):
+    """`sync_probe.nan_rays`: origins on slab planes with a zero direction
+    component, some boxes flattened, so that NaN bounds decide the walk."""
+    nan_in = sync_bench.nan_rays(sync_inputs, TILES)
+    aabb, links, comps = nan_in["aabb"], nan_in["links"], nan_in["comps"]
+    j_links = np.zeros((8, *links.shape), np.int32)
+    j_links[0] = links.numpy()
+    want = _jax_node_walk(aabb.numpy(), j_links, [c.numpy() for c in comps], variant)
+    got = sync_bench.run(nan_in, variant)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the NaN rule decides here: min / max that drop NaN give another walk
+    monkeypatch.setattr(torch, "minimum", torch.fmin)
+    monkeypatch.setattr(torch, "maximum", torch.fmax)
+    assert int((sync_probe.node_walk_plain(aabb, links, comps, variant) != got).sum()) > 100
 
 
 def test_node_walk_refuses_small_tables(sync_inputs):

@@ -4,7 +4,7 @@
 times two checkouts alike:
 
     python tools/time_walks.py [--repo DIR] [--label NAME] [--json PATH]
-                               [--walks bvh,grid,kdtree,wide,fused,deep,leaf]
+                               [--walks bvh,grid,kdtree,wide,fused,deep,leaf,sync]
 
 `--repo DIR` imports `cpu_ray_tracer_tpu_torch` from another checkout (for
 example the parent commit unpacked with `git archive` into a git-ignored
@@ -37,8 +37,11 @@ Also prints the card (nvidia-smi) and each walk kernel's registers, stack
 frame and spills from the build's `-Xptxas -v` log.
 
 `--walks` picks the rows: the four accelerators' walks, the fused kernels
-(`fused`), the deep trees (`deep`) and the leaf-test probes (`leaf`: K6
-and K7 at every m on the probe's 64 tiles, `benchmarks/mxu_probe.inputs`).
+(`fused`), the deep trees (`deep`), the leaf-test probes (`leaf`: K6
+and K7 at every m on the probe's 64 tiles, `benchmarks/mxu_probe.inputs`,
+each in the layout its checkout packs once per input) and the node-step
+probe (`sync`: K8's ten variants on the 225 tiles of camera rays,
+`benchmarks/sync_probe.inputs`).
 The wide walk also runs its primary rays, and the any hit a Whitted
 frame's level-0 shadow rays, in the camera's lane order (`perm`) where
 the checkout takes one.
@@ -59,8 +62,8 @@ WIDTH, HEIGHT, DEPTH, REPEATS, ROUNDS = 1280, 720, 5, 20, 5
 WALK_KERNELS = ("closest_hit_kernel", "occluded_kernel", "closest_hit_links_kernel",
                 "occluded_links_kernel", "closest_hit_wide_kernel", "occluded_wide_kernel",
                 "wavefront_kernel", "whitted_kernel", "vpu_leaf_kernel",
-                "mxu_leaf_kernel")
-ALL_WALKS = ("bvh", "grid", "kdtree", "wide", "fused", "deep", "leaf")
+                "mxu_leaf_kernel", "sync_probe_kernel")
+ALL_WALKS = ("bvh", "grid", "kdtree", "wide", "fused", "deep", "leaf", "sync")
 
 
 def ptxas_table(log: str) -> dict:
@@ -301,7 +304,7 @@ def main() -> int:
 
         inp = mxu_probe.inputs(mxu_probe.N_TILES, dev)
         n = inp["comps"][0].numel()
-        fn = lambda: leaf_probe.vpu_leaf(inp["tris"], *inp["comps"])  # noqa: E731
+        fn = lambda: mxu_probe.vpu(inp)  # noqa: E731
         add(walk="leaf", kernel="vpu_leaf", input="64 tiles", rays=n, ms=time_ms(fn),
             device_ms=device_ms(fn))
         for m in leaf_probe.WIDTHS:
@@ -309,6 +312,18 @@ def main() -> int:
             fn = lambda m=m, c=c_tab, p=phi: leaf_probe.mxu_leaf(c, p, m, inp["packed"][m])  # noqa: E731
             add(walk="leaf", kernel=f"mxu_leaf m={m}", input="64 tiles", rays=n, ms=time_ms(fn),
                 device_ms=device_ms(fn))
+
+    def sync_rows():
+        """K8's ten variants on the probe's camera rays."""
+        from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
+        from cpu_ray_tracer_tpu_torch.ops import sync_probe
+
+        inp = sync_bench.inputs(sync_bench.N_TILES, dev)
+        n = inp["comps"][0].numel()
+        for variant in sync_probe.VARIANTS:
+            fn = lambda v=variant: sync_bench.run(inp, v)  # noqa: E731
+            add(walk="sync", kernel=f"node_walk {variant}", input="225 tiles", rays=n,
+                ms=time_ms(fn), device_ms=device_ms(fn))
 
     for acc, (kwargs, closest, anyhit, query_name) in walks.items():
         if acc not in chosen:
@@ -344,6 +359,8 @@ def main() -> int:
         deep_rows()
     if "leaf" in chosen:
         leaf_rows()
+    if "sync" in chosen:
+        sync_rows()
     result = dict(label=args.label, repo=os.path.relpath(repo, HERE), card=card,
                   device=torch.cuda.get_device_name(0), ptxas=ptxas,
                   build_seconds=lib.build_seconds, rows=rows)
