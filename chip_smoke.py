@@ -100,13 +100,41 @@ The TPU probes, on their own inputs (`cpu_ray_tracer_tpu_torch/benchmarks/`):
    NaN-propagating min / max of its slab test (`FMNMX.NAN`); then one drive
    of `sync_probe.main` over all ten variants.
 
-Each drive of a main path (one pass or one frame, or one probe run) sets
-every kernel's launch count to 0 just before it and reads the counts just
-after; every kernel of the path must have launched.
+Gradients (`diff/`), on the main scene and camera:
+
+9. value + grad steps over every key of `diff/grad.PARAM_KEYS` of the L2
+   loss against a target rendered at the same `spp_index` from perturbed
+   parameters (albedo x0.8, light colour x0.9): (a) the differentiable
+   path tracer (`render_pass(differentiable=True)`, the host bounce at
+   every depth) at 1280x720, depth 5, nearest taps: a warm-up step, then 8
+   timed; ms per step, forward-equivalent rays/s (the forward's
+   `rays_traced` over the step's time, as `bench_fwdbwd.py` counts them),
+   `torch.cuda.max_memory_allocated` above what earlier phases hold,
+   launches per step (each step a
+   drive: K1 closest hit once per host depth, no other walk); every
+   gradient finite, albedo, light colour and a vertex key non-zero, the
+   texels' exactly zero (the nearest tap reads the packed atlas); (b) the
+   same on the scene compiled with `bilinear=True`, whose texel gradient is
+   non-zero; (c) Whitted (`render(differentiable=True)`, the host level),
+   4 timed steps, K1 closest and any hit once per level; (d) 64x40, depth
+   2: the gradients of the path tracer (fixed `spp_index`) and of Whitted
+   on the card against the CPU's from one scene, over the pixels whose
+   images agree (the others must be fp-borderline), within atol 2e-4
+   max|g|, rtol 1e-3 (`GRAD_ATOL`); (e) 5 steps of `diff/optimize.make_train_step` at
+   1280x720 on the bilinear scene from perturbed albedo, light colour and
+   texels, at the target's `spp_index` (common random numbers): the loss
+   after the last step below the first step's.
+
+Each drive of a main path (one pass or one frame, a gradient or train
+step, or one probe run) sets every kernel's launch count to 0 just before
+it and reads the counts just after; every kernel of the path must have
+launched.
 The line before the last is `{"kernels": [...]}`: per kernel its
 launches on the main paths over this run, its launches per pass and per
 frame on the default routes (`main_launches`: the path tracer at its
-default `wavefront_depths`, Whitted through its level kernel), the PR
+default `wavefront_depths`, Whitted through its level kernel), its
+launches per value + grad step (`grad_launches`: the path tracer of 9a,
+Whitted of 9c), the PR
 that redesigned it (`redesigned`), its time and its plain version's on
 the main path's inputs (phase 3), and its bound: the larger of the bytes it
 must move (its ray inputs, the scene tables of its work and its outputs,
@@ -140,6 +168,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 XML = os.path.join(REPO, "assets", "scenes", "bunny_teapot.xml")
 CAMERA = dict(pos=(0.0, 0.3, -1.2), target=(0.0, -0.1, 2.5))  # bench.py
 WIDTH, HEIGHT, DEPTH, PASSES, FRAMES = 1280, 720, 5, 16, 8
+# phase 9: value + grad steps of the path tracer (each mode) and of Whitted,
+# train steps; the pass salt of the gradient drives and their targets; the
+# card-against-CPU gradients' depth and tolerance (atol relative to max|g|)
+GRAD_STEPS, WHITTED_GRAD_STEPS, TRAIN_STEPS, GRAD_SPP = 8, 4, 5, 1
+# (the atol covers rounding residue on both devices: the diffuse weight's
+# cosine, analytically constant in the normal, and sky texels whose
+# bilinear weight is near 0; at 1e-5 v0 fails by 2.8e-5 on an H100 80GB HBM3)
+GRAD_SMALL_DEPTH, GRAD_ATOL, GRAD_RTOL = 2, 2e-4, 1e-3
 WAVEFRONT_DEPTHS = (0, 1, 6)
 KERNEL_REPEATS = 20
 PKG = "cpu_ray_tracer_tpu_torch"
@@ -420,6 +456,8 @@ def main() -> int:
     from cpu_ray_tracer_tpu_torch.benchmarks import leaf_tolerance, mxu_probe
     from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
     from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
+    from cpu_ray_tracer_tpu_torch.diff import grad as grad_mod
+    from cpu_ray_tracer_tpu_torch.diff.optimize import make_train_step
     from cpu_ray_tracer_tpu_torch.ops import (
         closest_hit as stack_walk, intersect, kernel_lib, leaf_probe, link_walk, sync_probe,
         wavefront_pt, whitted_wf, wide_bvh,
@@ -438,7 +476,8 @@ def main() -> int:
                    closest_hit_wide=wide_bvh.closest_hit_wide, occluded_wide=wide_bvh.occluded_wide)
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    print(card())
+    card_line = card()
+    print(card_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}")
 
     # --- 2. build ----------------------------------------------------------
@@ -1110,6 +1149,160 @@ def main() -> int:
         if count == 0:
             raise AssertionError(f"{key} was never launched by its probe")
 
+    # --- 9. gradients: the differentiable path tracer and Whitted ----------
+    keys = grad_mod.PARAM_KEYS
+    cpu_bil, _ = compile_scene(XML, bilinear=True, device="cpu")
+    bil = copy.deepcopy(cpu_bil).to(dev)
+    walks = [k for k in kernels if k not in ("wavefront_pt", "whitted_wf")]
+
+    def pt_render(sc, cam=camera, depth=DEPTH):
+        img, stats = pathtracer.render_pass(sc, cam, GRAD_SPP, depth, differentiable=True)
+        return img, stats["rays_traced"]
+
+    def whitted_render(sc, cam=camera, depth=DEPTH):
+        out = whitted.render(sc, cam, depth, differentiable=True)
+        return out["image"], out["rays"]
+
+    def perturbed(params):
+        return dict(params, albedo=params["albedo"] * 0.8, light_color=params["light_color"] * 0.9)
+
+    def grad_drive(label, sc, render, steps, per_step):
+        """One warm-up and `steps` timed value + grad steps of the L2 loss of
+        `render(sc)` against a target rendered at the same spp_index from
+        perturbed parameters, every key of PARAM_KEYS; each step a drive
+        of its own (counts from 0).  `per_step`: the walk kernels' launches
+        each step must make (no other walk kernel may launch).  Returns
+        the last step's gradients and the launches it counted."""
+        params = grad_mod.extract_params(sc, keys)
+        with torch.no_grad():
+            target = render(grad_mod.apply_params(sc, perturbed(params)))[0]
+        rays = []
+
+        def loss_fn(p):
+            img, r = render(grad_mod.apply_params(sc, p))
+            rays.append(r)
+            return grad_mod.l2_image_loss(img, target)
+
+        def step():
+            (loss, g), counts = counted(kernels, lambda: grad_mod.value_and_grad(loss_fn, params))
+            for key in kernels:
+                if counts[key] != per_step.get(key, 0):
+                    raise AssertionError(f"{label}: {key} launched {counts[key]} times in a step, "
+                                         f"expected {per_step.get(key, 0)}")
+                launches[key] += counts[key]
+            return loss, g, counts
+
+        step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the scenes and tables of earlier phases
+        start = time.perf_counter()
+        for _ in range(steps):
+            loss, g, counts = step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start) / steps
+        peak = torch.cuda.max_memory_allocated() - held
+        for key, v in g.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{label}: {key} gradient not finite")
+        for key in ("albedo", "light_color"):
+            if float(g[key].abs().sum()) == 0:
+                raise AssertionError(f"{label}: {key} gradient is zero")
+        print(f"{label} {WIDTH}x{HEIGHT} depth {DEPTH}: {steps} value+grad steps, {ms:.2f} ms/step, "
+              f"forward rays {rays[-1]}, {1e3 * rays[-1] / ms:.4g} rays/s (forward-equivalent), "
+              f"peak memory allocated by the steps {peak} bytes ({peak / 2**30:.3f} GiB, above "
+              f"the {held} held before them), launches per step "
+              f"{ {k: c for k, c in counts.items() if c} }, loss {float(loss):.6g}; sum |g| "
+              f"{ {k: float(v.abs().sum()) for k, v in g.items()} }; {card_line}")
+        return dict(grads=g, counts=counts, ms=ms)
+
+    # (a), (b): the path tracer, nearest (the packed atlas: no texel
+    # gradient) and bilinear; K1 closest hit once per host depth
+    pt_steps = dict(closest_hit=DEPTH + 1)
+    grad_runs = {}
+    for label, sc in (("grad path tracer nearest", scene), ("grad path tracer bilinear", bil)):
+        r = grad_drive(label, sc, pt_render, GRAD_STEPS, pt_steps)
+        g = r["grads"]
+        if not any(float(g[k].abs().sum()) > 0 for k in ("v0", "e1", "e2")):
+            raise AssertionError(f"{label}: no vertex gradient")
+        texel_sum = float(g["texels"].abs().sum())
+        if (texel_sum > 0) != (sc is bil):
+            raise AssertionError(f"{label}: texel gradient sum {texel_sum}")
+        grad_runs[label] = r
+    # (c): Whitted, both K1 kernels once per level
+    w_levels = whitted.render(scene, camera, DEPTH, level_kernel=False)["levels"]
+    grad_runs["grad whitted"] = grad_drive(
+        "grad whitted", scene, whitted_render, WHITTED_GRAD_STEPS,
+        dict(closest_hit=w_levels, occluded=w_levels))
+
+    # (d): card (kernels) against CPU (plain versions) at 64x40, one scene
+    for label, small_render, radiance, rays in (
+            ("path tracer", lambda sc: pt_render(sc, small, GRAD_SMALL_DEPTH)[0],
+             lambda oo, dd, ss: pathtracer.sample_radiance(
+                 cpu_scene, oo, dd, ss, GRAD_SMALL_DEPTH, differentiable=True)[0],
+             pathtracer.camera_rays(small, GRAD_SPP, "cpu")),
+            ("whitted", lambda sc: whitted_render(sc, small, GRAD_SMALL_DEPTH)[0],
+             lambda oo, dd, _: whitted.radiance(
+                 cpu_scene, oo, dd, GRAD_SMALL_DEPTH, differentiable=True)[0],
+             (so_, sd_, None))):
+        with torch.no_grad():
+            img_c, img_g = small_render(cpu_scene), small_render(scene).cpu()
+        mask, cmp = borderline.agreement_mask(radiance, rays, img_g, img_c)
+        if cmp["unexplained"].numel():
+            raise AssertionError(f"gradients 64x40 {label}: images differ at "
+                                 f"{cmp['unexplained'].tolist()}")
+        params = grad_mod.extract_params(cpu_scene, keys)
+        grads, small_counts = {}, {}
+        for where, sc in (("cuda", scene), ("cpu", cpu_scene)):
+            loss_fn = grad_mod.make_loss_fn(
+                sc, lambda s_, f=small_render, m=mask.to(sc.device): f(s_) * m,
+                torch.zeros(img_c.shape, device=sc.device))
+            (_, grads[where]), small_counts[where] = counted(
+                kernels, lambda: grad_mod.value_and_grad(
+                    loss_fn, {k: v.to(sc.device) for k, v in params.items()}))
+        need = ["closest_hit"] + (["occluded"] if label == "whitted" else [])
+        if any(small_counts["cuda"][k] == 0 for k in need) or any(
+                small_counts["cuda"][k] for k in walks if k not in need):
+            raise AssertionError(f"gradients 64x40 {label}: launches {small_counts['cuda']}")
+        worst = {}
+        for key in keys:
+            want, got = grads["cpu"][key], grads["cuda"][key].cpu()
+            scale = float(want.abs().max())
+            excess = (got - want).abs() - GRAD_RTOL * want.abs()
+            worst[key] = float(excess.max()) / scale if scale > 0 else float(excess.max())
+            if not bool(torch.isfinite(got).all()) or worst[key] > GRAD_ATOL:
+                raise AssertionError(f"gradients 64x40 {label}: {key} beyond atol "
+                                     f"{GRAD_ATOL} max|g| + rtol {GRAD_RTOL} by {worst[key]}")
+        print(f"gradients 64x40 depth {GRAD_SMALL_DEPTH} {label}, cuda vs cpu: pixels left out "
+              f"(fp-borderline) {cmp['bad'].numel()}; per key, the largest excess over rtol "
+              f"{GRAD_RTOL} in units of max|g| (limit {GRAD_ATOL}): "
+              f"{ {k: f'{v:.3g}' for k, v in worst.items()} }; launches "
+              f"{ {k: c for k, c in small_counts['cuda'].items() if c} }")
+
+    # (e): train steps at full width, bilinear, from perturbed albedos, at
+    # the target's spp_index (common random numbers)
+    with torch.no_grad():
+        target = pt_render(bil)[0]
+    start_params = perturbed(grad_mod.extract_params(bil, ("albedo", "light_color", "texels")))
+    train = make_train_step(bil, camera, target, start_params, 0.05, DEPTH, device=dev)
+    losses, train_ms = [], []
+    for i in range(TRAIN_STEPS):
+        (loss, ms), counts = counted(kernels, lambda: timed_once(lambda: train(GRAD_SPP)))
+        if counts["closest_hit"] != DEPTH + 1:
+            raise AssertionError(f"train step {i}: closest_hit launched {counts['closest_hit']}")
+        for key in kernels:
+            launches[key] += counts[key]
+        losses.append(float(loss))
+        train_ms.append(ms)
+    with torch.no_grad():
+        final = float(grad_mod.l2_image_loss(
+            pt_render(grad_mod.apply_params(bil, train.params))[0], target))
+    print(f"make_train_step {WIDTH}x{HEIGHT} depth {DEPTH} bilinear, Adam lr 0.05: losses "
+          f"{[f'{x:.6g}' for x in losses]}, after step {TRAIN_STEPS} {final:.6g}, ms per step "
+          f"{[f'{x:.1f}' for x in train_ms]}; {card_line}")
+    if not final < losses[0]:
+        raise AssertionError("the train steps did not lower the loss")
+
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    wavefront_pt=("wavefront_pt.cu", "ops/pallas/wavefront_pt.py:165"),
@@ -1127,6 +1320,11 @@ def main() -> int:
     default_frame = frames[True]["counts"]
     main_launches = {key: dict(per_pass=default_pass.get(key, 0) / PASSES,
                                per_frame=default_frame.get(key, 0) / FRAMES) for key in kernels}
+    # launches counted in the last timed value + grad step of the path
+    # tracer (nearest) and of Whitted
+    grad_launches = {key: dict(pathtracer=grad_runs["grad path tracer nearest"]["counts"][key],
+                               whitted=grad_runs["grad whitted"]["counts"][key])
+                     for key in kernels}
     redesigned = dict(closest_hit=5, occluded=5, closest_hit_links=5, occluded_links=5,
                       wavefront_pt=6, whitted_wf=6, closest_hit_wide=7, occluded_wide=7,
                       **{f"mxu_leaf m={m}": 7 for m in leaf_probe.WIDTHS}, vpu_leaf=8,
@@ -1144,6 +1342,7 @@ def main() -> int:
         "replaces": e["replaces"],
         "launches": e["launches"],
         "main_launches": e["main"],
+        "grad_launches": grad_launches.get(e["name"], dict(pathtracer=0, whitted=0)),
         "redesigned": redesigned.get(e["name"]),
         "max_abs_err": e["result"]["max_abs_err"],
         "ms": e["result"]["ms"],

@@ -223,11 +223,14 @@ def require_aligned(what: str, **tensors) -> None:
 
 def require(what: str, device, **tensors) -> None:
     """Raise unless every `name=(tensor, dtype, shape or None)` is a
-    contiguous tensor of that dtype (and shape) on `device`; a None tensor
-    is an absent optional input."""
+    contiguous tensor of that dtype (and shape) on `device` that autograd
+    does not track (a kernel reads its pointer, outside the graph); a None
+    tensor is an absent optional input."""
     for name, (x, dtype, shape) in tensors.items():
         if x is None:
             continue
+        if x.requires_grad:
+            raise ValueError(f"{what}: {name} requires grad; kernels take detached tensors")
         if x.device != device or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(
                 f"{what}: {name} must be a contiguous {dtype} tensor on {device}, "

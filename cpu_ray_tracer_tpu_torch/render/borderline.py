@@ -16,6 +16,10 @@ The probe renders through a radiance function `radiance(o, d, seeds) ->
 [R, 3]` of the integrator under test, for instance
 `lambda o, d, s: pathtracer.sample_radiance(scene, o, d, s)[0]`; `seeds`
 may be None for an integrator without random numbers.
+
+Gradients of two renders compare on the pixels where the images agree
+(`agreement_mask`): a borderline pixel's path differs, and so does its
+gradient.
 """
 
 from __future__ import annotations
@@ -63,3 +67,15 @@ def unexplained_pixels(radiance, rays, img, ref, atol: float = 2e-5,
         radiance, o[idx], d[idx], None if seeds is None else seeds[idx], atol=atol, rtol=rtol,
     )
     return dict(bad=bad, unexplained=bad[~sensitive])
+
+
+def agreement_mask(radiance, rays, img, ref, atol: float = 2e-5,
+                   rtol: float = 1e-4) -> tuple[torch.Tensor, dict]:
+    """`unexplained_pixels` of `img` against `ref`, and a float32 mask
+    [H, W, 1] on the CPU that is 0 on the pixels beyond tolerance and 1
+    elsewhere: a loss weighted by it compares two renders' gradients over
+    the pixels whose paths agree."""
+    cmp = unexplained_pixels(radiance, rays, img, ref, atol, rtol)
+    mask = torch.ones(img.shape[0] * img.shape[1], dtype=torch.float32)
+    mask[cmp["bad"]] = 0.0
+    return mask.reshape(img.shape[0], img.shape[1], 1), cmp

@@ -19,8 +19,14 @@ def direct_illumination(scene, point: torch.Tensor, normal: torch.Tensor, active
     (2. WhittedStyle/renderer.cpp:105-126): inverse-square falloff, N.L,
     shadow distance dist - 2 EPS; zero where `active` [R] is False.  The
     shadow query's lanes take the rays in the order `perm` where given
-    (`query.is_occluded`)."""
+    (`query.is_occluded`).  A lane left out takes a point one unit below
+    the light: a miss's point lies at RAY_FAR, whose infinite distance
+    would turn the zero gradient of its masked irradiance into NaN (the
+    JAX package's differentiable Whitted frame gives NaN vertex gradients
+    so, ROADMAP queue 3)."""
     light_pos = query.get_light_pos(scene)
+    if active is not None:
+        point = torch.where(active[:, None], point, light_pos - point.new_tensor((0.0, 1.0, 0.0)))
     l = light_pos - point
     dist = torch.sqrt((l * l).sum(dim=-1))
     l = l / torch.clamp_min(dist, np.float32(1e-20))[:, None]

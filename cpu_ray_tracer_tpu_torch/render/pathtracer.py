@@ -43,6 +43,18 @@ exception: every camera ray is live, and the walk's lanes take them in
 the camera's lane order (`ops/wide_bvh.py` `perm`) without a gather.
 This replaces the JAX package's chunk scans, `lax.cond` skips and tier
 cascade, which exist for XLA's static shapes.
+
+`differentiable=True` (the JAX package's, `sample_radiance` :1189-1410)
+runs every depth through the host bounce, whose hits come from
+`query.find_nearest_diff` (detached walks, t and barycentrics recomputed
+with autograd), and writes the state and the sky out of place, so that
+autograd reaches every parameter of `diff/grad.py`.  Its backward is
+PyTorch autograd: the JAX package's custom VJPs (`_apply_perm`,
+`_apply_tap_factor`, `vecmath._gather3_flat`) work around TPU scatter
+costs and scan padding, and the bilinear tap is computed inline (the JAX
+package's `CRT_DEFER_TEX=0` formulation).  Autograd keeps every depth's
+shading intermediates where the JAX package rematerializes each bounce
+(`jax.checkpoint`), which the card's memory holds (PERF.md).
 """
 
 from __future__ import annotations
@@ -66,9 +78,15 @@ _STATE = ("o", "d", "seed", "throughput", "inside", "alive", "missed", "lit",
 WAVEFRONT_DEPTHS = 1
 
 
-def wavefront_depths_for(scene, wavefront_depths) -> int:
+def wavefront_depths_for(scene, wavefront_depths, differentiable: bool = False) -> int:
     """The depths to run in the wavefront kernel: `wavefront_depths`, or
-    for None the default of the scene (module docstring)."""
+    for None the default of the scene (module docstring); 0 for a
+    differentiable pass, which runs no kernel that shades."""
+    if differentiable:
+        if wavefront_depths:
+            raise ValueError(f"wavefront_depths={wavefront_depths} with differentiable=True: "
+                             "gradients take the host bounce from depth 0")
+        return 0
     if wavefront_depths is None:
         return WAVEFRONT_DEPTHS if scene.stack_kernels else 0
     if wavefront_depths > 0 and not scene.stack_kernels:
@@ -85,10 +103,14 @@ def locus_order(d: torch.Tensor, locus: torch.Tensor) -> torch.Tensor:
     return torch.argsort(key, stable=True)
 
 
-def bounce_step(scene, s: dict, depth: int, depth_limit: int, perm=None) -> dict:
+def bounce_step(scene, s: dict, depth: int, depth_limit: int, perm=None,
+                differentiable: bool = False) -> dict:
     """Advance every ray of `s` (all alive) one path segment, the wide
-    walk's lanes taking the rays in the order `perm` where given."""
-    res = query.find_nearest(scene, s["o"], s["d"], perm)
+    walk's lanes taking the rays in the order `perm` where given; with
+    `differentiable`, t and the barycentrics of the hits carry gradients
+    (`query.find_nearest_diff`)."""
+    nearest = query.find_nearest_diff if differentiable else query.find_nearest
+    res = nearest(scene, s["o"], s["d"], perm)
     t = res["t"]
     hit = res["obj_idx"] >= 0
     missed = s["missed"] | ~hit
@@ -162,15 +184,18 @@ def initial_state(o, d, seeds) -> dict:
 
 
 def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT,
-                    wavefront_depths: int | None = None, perm=None):
+                    wavefront_depths: int | None = None, perm=None,
+                    differentiable: bool = False):
     """Radiance [R, 3] along rays (o, d) [R, 3] with per-ray seeds [R]
     (uint32 values in int64), in the input ray order, and stats:
     `rays_traced` (path segments traced, an int), per-ray `traversed` and
     `tested` counters.  The first `wavefront_depths` depths run in the
     wavefront kernel (module docstring), its lanes taking the rays in the
     order `perm` int32 [R] where given and the kernel runs one depth; on
-    the wide walk, depth 0 of the host bounce takes them in that order."""
-    wavefront_depths = wavefront_depths_for(scene, wavefront_depths)
+    the wide walk, depth 0 of the host bounce takes them in that order.
+    `differentiable=True`: the radiance carries gradients (module
+    docstring); an explicit `wavefront_depths` > 0 then raises."""
+    wavefront_depths = wavefront_depths_for(scene, wavefront_depths, differentiable)
     factor = None
     first = 0
     rays_traced = 0
@@ -199,17 +224,26 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
             if depth == 0 and query.wide_perm(scene, perm) is not None:
                 # every camera ray, in pixel order, to the wide walk's
                 # lanes in the camera's lane order
-                state.update(bounce_step(scene, state, depth, depth_limit, perm))
+                state.update(bounce_step(scene, state, depth, depth_limit, perm,
+                                         differentiable))
                 continue
             idx = live[locus_order(state["d"][live], state["locus"][live])]
-            out = bounce_step(scene, {k: state[k][idx] for k in _STATE}, depth, depth_limit)
-            for k in _STATE:
-                state[k][idx] = out[k]
+            out = bounce_step(scene, {k: state[k][idx] for k in _STATE}, depth, depth_limit,
+                              differentiable=differentiable)
+            if differentiable:  # autograd saves tensors that a write in place would change
+                state = {k: state[k].index_copy(0, idx, out[k]) for k in _STATE}
+            else:
+                for k in _STATE:
+                    state[k][idx] = out[k]
 
     tp = state["throughput"]
     radiance = torch.where(state["lit"][:, None], tp * scene.light_color, np.float32(0.0))
     sky = torch.nonzero(state["missed"]).squeeze(1)
-    radiance[sky] += tp[sky] * query.sky_color(scene, state["d"][sky])
+    sky_rad = tp[sky] * query.sky_color(scene, state["d"][sky])
+    if differentiable:
+        radiance = radiance.index_add(0, sky, sky_rad)
+    else:
+        radiance[sky] += sky_rad
     if factor is not None:
         radiance = radiance * factor
     return radiance, dict(
@@ -232,10 +266,12 @@ def camera_rays(camera: cam_mod.Camera, spp_index: int, device=device_mod.DEFAUL
 
 def render_pass(scene, camera: cam_mod.Camera, spp_index: int,
                 depth_limit: int = constants.DEPTH_LIMIT,
-                wavefront_depths: int | None = None):
-    """One progressive pass, one jittered sample per pixel.  Returns
-    (radiance [H, W, 3], stats)."""
+                wavefront_depths: int | None = None, differentiable: bool = False):
+    """One progressive pass, one jittered sample per pixel, on the scene's
+    device.  Returns (radiance [H, W, 3], stats); with `differentiable`
+    the radiance carries gradients to the scene's parameters
+    (`diff/grad.apply_params`)."""
     o, d, seeds = camera_rays(camera, spp_index, scene.device)
     radiance, stats = sample_radiance(scene, o, d, seeds, depth_limit, wavefront_depths,
-                                      cam_mod.lane_order(camera, scene.device))
+                                      cam_mod.lane_order(camera, scene.device), differentiable)
     return radiance.reshape(camera.height, camera.width, 3), stats

@@ -32,9 +32,19 @@ BVH); an explicit `level_kernel=True` on such a scene raises.
 
 The film adds later levels with `index_add_` at the children's pixels; on
 the card that sum is atomic and its order varies from run to run.
+
+`differentiable=True` (the JAX package's `_shade_level(differentiable=
+True)`): every level takes the host route with `query.find_nearest_diff`
+(detached walks, t and barycentrics recomputed with autograd) and
+detached shadow queries, and the image carries gradients to the
+parameters of `diff/grad.py`; an explicit `level_kernel=True` then
+raises.  Nothing the film's `index_add_` reads is saved for the backward,
+so it stays in place.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -48,9 +58,14 @@ from cpu_ray_tracer_tpu_torch.scene import query
 EPS = constants.SHADE_EPS
 
 
-def level_kernel_for(scene, level_kernel) -> bool:
+def level_kernel_for(scene, level_kernel, differentiable: bool = False) -> bool:
     """`level_kernel`, or for None the default of the scene (module
-    docstring)."""
+    docstring); False for a differentiable frame."""
+    if differentiable:
+        if level_kernel:
+            raise ValueError("level_kernel=True with differentiable=True: gradients take the "
+                             "host route")
+        return False
     if level_kernel is None:
         return scene.stack_kernels
     if level_kernel and not scene.stack_kernels:
@@ -60,12 +75,14 @@ def level_kernel_for(scene, level_kernel) -> bool:
     return bool(level_kernel)
 
 
-def _level_host(scene, o, d, inside, perm=None) -> dict:
+def _level_host(scene, o, d, inside, perm=None, differentiable: bool = False) -> dict:
     """One level's hits, albedo, irradiance and dielectric terms through the
     host queries (`_shade_level`), the wide walk's lanes taking the rays
-    in the order `perm` where given."""
+    in the order `perm` where given; with `differentiable`, t and the
+    barycentrics carry gradients (`query.find_nearest_diff`)."""
     perm = query.wide_perm(scene, perm)
-    res = query.find_nearest(scene, o, d, perm)
+    nearest = query.find_nearest_diff if differentiable else query.find_nearest
+    res = nearest(scene, o, d, perm)
     hit = res["obj_idx"] >= 0
     point = o + res["t"][:, None] * d
     normal, uv, mat_id = query.get_hit_info(scene, res, point, d)
@@ -138,15 +155,18 @@ def _shade(scene, lv: dict, d, inside, weight):
 
 
 def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT,
-             level_kernel: bool | None = None, perm=None):
+             level_kernel: bool | None = None, perm=None, differentiable: bool = False):
     """Whitted radiance [R, 3] along rays (o, d) [R, 3] (outside every
     medium), in the input order, and stats: the first level's per-ray
     `traversed` and `tested`, `rays` (rays traced over all levels, an int)
     and `levels` (levels traced).  The level kernel's lanes take the first
     level's rays in the order `perm` int32 [R] where given (a frame's
     `core/camera.lane_order`); later levels, which the children's gather
-    builds, in their own order."""
-    level = _level_kernel if level_kernel_for(scene, level_kernel) else _level_host
+    builds, in their own order.  `differentiable`: module docstring."""
+    if level_kernel_for(scene, level_kernel, differentiable):
+        level = _level_kernel
+    else:
+        level = functools.partial(_level_host, differentiable=differentiable)
     n, dev = o.shape[0], o.device
     pixel = torch.arange(n, device=dev)
     inside = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -177,13 +197,15 @@ def radiance(scene, o, d, depth_limit: int = constants.DEPTH_LIMIT,
 
 
 def render(scene, camera: cam_mod.Camera, depth_limit: int = constants.DEPTH_LIMIT,
-           level_kernel: bool | None = None) -> dict:
-    """One Whitted frame (unjittered primary rays).  Returns dict(image
-    [H, W, 3], traversed and tested [H, W] of the primary rays, dropped
-    (always 0: no child is ever dropped), rays, levels)."""
+           level_kernel: bool | None = None, differentiable: bool = False) -> dict:
+    """One Whitted frame (unjittered primary rays) on the scene's device.
+    Returns dict(image [H, W, 3], traversed and tested [H, W] of the
+    primary rays, dropped (always 0: no child is ever dropped), rays,
+    levels); with `differentiable` the image carries gradients to the
+    scene's parameters (`diff/grad.apply_params`)."""
     o, d = cam_mod.full_frame_rays(camera, device=scene.device)
     film, stats = radiance(scene, o, d, depth_limit, level_kernel,
-                           cam_mod.lane_order(camera, scene.device))
+                           cam_mod.lane_order(camera, scene.device), differentiable)
     hw = (camera.height, camera.width)
     return dict(
         image=film.reshape(*hw, 3), traversed=stats["traversed"].reshape(hw),
@@ -199,8 +221,6 @@ def render_adaptive(scene, camera: cam_mod.Camera, depth_limit: int = constants.
     """The JAX package's grow-or-fail entry point.  Nothing is ever dropped
     here, so it renders once, never calls `on_grow`, and reports
     `cap_factor` as given."""
-    if differentiable:
-        raise NotImplementedError("gradients are not ported yet (ROADMAP queue 1, item 11)")
-    out = render(scene, camera, depth_limit, level_kernel)
+    out = render(scene, camera, depth_limit, level_kernel, differentiable)
     out["cap_factor"] = cap_factor
     return out

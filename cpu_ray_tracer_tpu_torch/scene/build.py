@@ -52,13 +52,16 @@ def _object_matrix(obj) -> np.ndarray:
 
 def compile_scene(
     xml_path: str, layout: str = "tlas", accel: str = "bvh", instancing: str = "baked",
-    shadow_quirk: bool = True, wide: bool | str = False, device=device_mod.DEFAULT,
+    shadow_quirk: bool = True, wide: bool | str = False, bilinear: bool = False,
+    device=device_mod.DEFAULT,
 ) -> tuple[DeviceScene, SceneInfo]:
     """Compile an XML scene to a DeviceScene on `device` (the card unless
     the caller asks for another; without a CUDA device the default
     raises).  `accel` "bvh", "grid" or "kdtree"; `wide` False, True or
     "bounce" for "bvh" (module docstring); `shadow_quirk` as the JAX
-    package's (`DeviceScene` doc)."""
+    package's; `bilinear` picks the bilinear texture tap, which carries
+    texel gradients and keeps the scene off the wavefront and Whitted
+    level kernels (`DeviceScene` doc)."""
     dev = device_mod.resolve(device)
     if layout != "tlas":
         raise NotImplementedError("layout='mono' is not ported yet (ROADMAP queue 1, item 10)")
@@ -145,6 +148,7 @@ def compile_scene(
         shadow_quirk=shadow_quirk,
         wide=wide_pack,
         wide_bounce=wide == "bounce",
+        bilinear=bilinear,
     )
     info = SceneInfo(
         name=spec.name,

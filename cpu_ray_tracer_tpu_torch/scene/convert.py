@@ -22,14 +22,25 @@ the two scene compilers agree.
 * `light_t`, `light_inv_t`, `light_size`, `light_color`, `floor_inv_to`.
 
 `meta`: `root`, `stack_depth` (0 when the root is a leaf), `skydome_tex`,
-and optionally `shadow_quirk` (default True) and `meta_in_shade` (default
-True).  A tree deeper than the stack walk's STACK_CAP is threaded with
-links here (`pack.make_tables`), as the JAX package walks it by its links.
+and optionally `shadow_quirk` (default True), `meta_in_shade` (default
+True) and `bilinear` (default False: the scene's texture tap,
+`DeviceScene.bilinear`).  A tree deeper than the stack walk's STACK_CAP
+is threaded with links here (`pack.make_tables`), as the JAX package
+walks it by its links.
+
+`params_from_arrays` carries the JAX package's differentiable parameters
+the same way: the dict of its `diff.grad.extract_params`, converted to
+numpy, with any of the keys of `diff/grad.PARAM_KEYS` (`albedo` [M, 3],
+`reflectivity`, `refractivity` [M], `absorption` [M, 3], `texels` [K, 3],
+`light_color` [3], `v0`, `e1`, `e2` [N, 3] in pool order), becomes the
+port's parameter dict for `diff/grad.apply_params` on the scene that
+`scene_from_arrays` built from the same JAX scene.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from cpu_ray_tracer_tpu_torch.accel import pack
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
@@ -102,4 +113,12 @@ def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
         floor_inv_to=float(a["floor_inv_to"]),
         skydome_tex=int(meta["skydome_tex"]),
         shadow_quirk=bool(meta.get("shadow_quirk", True)),
+        bilinear=bool(meta.get("bilinear", False)),
     )
+
+
+def params_from_arrays(np_params: dict) -> dict:
+    """The port's parameter dict (float32 tensors, on the CPU as the scene
+    `scene_from_arrays` builds) of the JAX package's `extract_params`
+    output as numpy arrays (module docstring)."""
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in np_params.items()}

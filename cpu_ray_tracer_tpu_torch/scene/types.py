@@ -32,11 +32,16 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
   depth <= STACK_CAP); the wavefront and Whitted level kernels walk the
   stack tables where it does and the link tables where it does not (the
   JAX package's gate, wavefront_pt.py:563-568);
+* `bilinear`: textures take the bilinear tap of the float atlas
+  (`core/textures.py`), differentiable in the texels, instead of the
+  nearest tap of the packed one;
 * `stack_kernels`: whether the wavefront and Whitted level kernels may
   serve the scene: a binary BVH, alone or with wide tables for the host
   queries only (`wide_bounce`, the JAX package's `CRT_WIDE=bounce`), whose
-  ids fit the meta word (the JAX package's `_kernel_scene_eligible`,
-  render/pathtracer.py:473-500, which also turns away the cell forests);
+  ids fit the meta word, with nearest taps (the kernels record nearest
+  texel indices) (the JAX package's `_kernel_scene_eligible`,
+  render/pathtracer.py:473-500, which also turns away the cell forests
+  and bilinear scenes);
 * `pool` float32 [N, 9]: v0, e1, e2 of every triangle by pool id (the
   triangle pool; hit ids index it);
 * `mat_*`: the material table, plus each material's texture offset, width
@@ -49,6 +54,9 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
   default, `cpu_ray_tracer_tpu/scene/types.py:95`);
 * `kernel_params`: the light, floor and material scalars packed once for
   the wavefront and Whitted kernels (`ops/surface.kernel_params`).
+
+`diff/grad.apply_params` swaps differentiable tensors in for the
+material, texel, light-colour and pool buffers of a copy of the scene.
 """
 
 from __future__ import annotations
@@ -93,6 +101,7 @@ class DeviceScene(nn.Module):
         shadow_quirk: bool = True,
         wide: PackedWide | None = None,
         wide_bounce: bool = False,
+        bilinear: bool = False,
     ):
         super().__init__()
 
@@ -124,8 +133,9 @@ class DeviceScene(nn.Module):
             self.walk = "wide"
         else:
             self.walk = "stack" if packed.stack else "links"
+        self.bilinear = bool(bilinear)
         self.stack_kernels = (not packed.cell_forest and packed.slot_ids is None
-                              and (wide is None or wide_bounce))
+                              and (wide is None or wide_bounce) and not self.bilinear)
 
         buf("mat_albedo", materials.albedo, np.float32)
         buf("mat_reflectivity", materials.reflectivity, np.float32)

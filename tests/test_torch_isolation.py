@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither JAX, flax, PIL nor the JAX package: the
-machine with the card has none of them."""
+"""The PyTorch port imports neither JAX, optax, flax, PIL nor the JAX
+package: the machine with the card has none of them."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "cpu_ray_tracer_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cpu_ray_tracer_tpu")
+BLOCKED = ("jax", "jaxlib", "optax", "flax", "PIL", "cpu_ray_tracer_tpu")
 MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py")
@@ -82,5 +82,6 @@ def test_every_kernel_module_is_covered():
                  "ops.whitted_wf", "ops.surface", "ops.kernel_lib", "accel.cell_tree",
                  "accel.grid_builder", "accel.kdtree_builder", "accel.wide",
                  "render.pathtracer", "render.whitted", "ops.leaf_probe", "ops.sync_probe",
-                 "benchmarks.mxu_probe", "benchmarks.sync_probe", "benchmarks.leaf_tolerance"):
+                 "benchmarks.mxu_probe", "benchmarks.sync_probe", "benchmarks.leaf_tolerance",
+                 "diff.grad", "diff.optimize"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -18,6 +18,7 @@ import torch
 from cpu_ray_tracer_tpu_torch.benchmarks import leaf_tolerance, mxu_probe
 from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
+from cpu_ray_tracer_tpu_torch.diff import grad as grad_mod
 from cpu_ray_tracer_tpu_torch.ops import (
     intersect, leaf_probe, link_walk, sync_probe, wavefront_pt, whitted_wf, wide_bvh,
 )
@@ -28,6 +29,7 @@ from cpu_ray_tracer_tpu_torch.render import borderline, pathtracer, whitted
 from cpu_ray_tracer_tpu_torch.scene import query, synthetic
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 from torch_rays import axis_aligned_rays, flat_quads_xml, in_plane_rays, node_bounds, random_rays
+from torch_taps import Taps
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 BENCH_CAMERA = dict(pos=(0.0, 0.3, -1.2), target=(0.0, -0.1, 2.5))
@@ -517,3 +519,122 @@ def test_node_walk_kernel_matches_plain(sync_inputs, variant):
         assert sync_probe.node_walk.launches[variant] == before + 1
         want = sync_probe.node_walk_plain(data["aabb"], data["links"], data["comps"], variant)
         assert torch.equal(got, want)
+
+
+# gradients on the card (kernels) against the CPU (plain versions): the
+# binary, link and wide walks, and the bilinear tap
+GRAD_CONFIGS = {"bvh": {}, "grid": dict(accel="grid"), "wide": dict(wide=True),
+                "bvh-bilinear": dict(bilinear=True)}
+GRAD_DEPTH, GRAD_SPP = 2, 7
+# the gradients' atol relative to max|g|: the diffuse weight's cosine is
+# analytically constant in the normal and leaves rounding residue in the
+# vertex gradients.  On a bilinear scene the texels' and the vertices'
+# gradients hold only in sum (relative L1 error `BILINEAR_L1`, each entry
+# within `GRAD_ATOL_BILINEAR` max|g|): a texel's weight (1 - tx) near 0
+# takes the sky's atan2 / acos rounding (CUDA's and the CPU's) times the
+# texture width, and a sample within rounding of a texel edge takes the
+# other texel pair on one device, so its uv derivative jumps by a texel
+# difference times the width (up to 2.9e-3 max|g| on v0 and a relative L1
+# error of 7.7e-4, on an H100 80GB HBM3 at 700 W).  The witness: with the
+# CPU's tap positions replayed on the card where they differ by rounding
+# (`torch_taps`) every key holds entry by entry at `GRAD_ATOL`
+GRAD_ATOL, GRAD_ATOL_BILINEAR, BILINEAR_L1 = 2e-4, 1e-2, 2e-3
+BILINEAR_KEYS = ("texels", "v0", "e1", "e2")
+
+
+@pytest.mark.parametrize("integrator", ["pathtracer", "whitted"])
+@pytest.mark.parametrize("config", list(GRAD_CONFIGS))
+def test_gradients_on_card_match_cpu(config, integrator, cuda):
+    """bunny_teapot 64x40, depth 2 (the path tracer at a fixed seed): the
+    gradients of every key of PARAM_KEYS on the card, through the walk
+    kernel of the scene (and the any-hit kernel for Whitted), within
+    atol = 2e-4 max|g|, rtol = 1e-3 of the CPU's (the texels and vertices
+    of the bilinear scene in sum: `BILINEAR_L1`), over the pixels whose
+    images agree at the parity tolerance (the others must be
+    fp-borderline).  The card's scatters of the backward sum in another
+    order, and the atol covers entries that are rounding residue on both
+    devices (`GRAD_ATOL`)."""
+    cpu, _ = compile_scene(os.path.join(ASSETS, "scenes", "bunny_teapot.xml"), device="cpu",
+                           **GRAD_CONFIGS[config])
+    gpu = copy.deepcopy(cpu).to(cuda)
+    camera = cam_mod.make_camera(64, 40, **BENCH_CAMERA)
+
+    def render(sc, o=None, d=None, s=None):
+        if integrator == "pathtracer":
+            if o is None:
+                return pathtracer.render_pass(sc, camera, GRAD_SPP, GRAD_DEPTH,
+                                              differentiable=True)[0]
+            return pathtracer.sample_radiance(sc, o, d, s, GRAD_DEPTH, differentiable=True)[0]
+        if o is None:
+            return whitted.render(sc, camera, GRAD_DEPTH, differentiable=True)["image"]
+        return whitted.radiance(sc, o, d, GRAD_DEPTH, differentiable=True)[0]
+
+    if integrator == "pathtracer":
+        rays = pathtracer.camera_rays(camera, GRAD_SPP, "cpu")
+    else:
+        rays = (*cam_mod.full_frame_rays(camera, device="cpu"), None)
+    with torch.no_grad():
+        img_cpu, img_gpu = render(cpu), render(gpu).cpu()
+    mask, cmp = borderline.agreement_mask(lambda o, d, s: render(cpu, o, d, s), rays, img_gpu,
+                                          img_cpu)
+    assert cmp["unexplained"].numel() == 0, cmp["unexplained"].tolist()
+    params = grad_mod.extract_params(cpu, grad_mod.PARAM_KEYS)
+
+    def grads(sc, dev, taps=None):
+        """The gradients on `dev`; with `taps`, recording the bilinear taps'
+        positions (`taps.record_port`) or, with `replay` set, replaying
+        them."""
+
+        def taped(s):
+            if taps is None:
+                return render(s)
+            with pytest.MonkeyPatch.context() as mp:
+                if replay is None:
+                    taps.record_port(mp)
+                else:
+                    taps.replay_port(mp, replay)
+                return render(s)
+
+        loss_fn = grad_mod.make_loss_fn(sc, lambda s: taped(s) * mask.to(dev),
+                                        torch.zeros(img_cpu.shape, device=dev))
+        return grad_mod.value_and_grad(loss_fn, {k: v.to(dev) for k, v in params.items()})[1]
+
+    walk = dict(stack=closest_hit, links=link_walk.closest_hit_links,
+                wide=wide_bvh.closest_hit_wide)[gpu.walk]
+    any_walk = dict(stack=occluded, links=link_walk.occluded_links,
+                    wide=wide_bvh.occluded_wide)[gpu.walk]
+    before, any_before = walk.launches, any_walk.launches
+    g_gpu = grads(gpu, cuda)
+    torch.cuda.synchronize()
+    assert walk.launches > before
+    assert (any_walk.launches > any_before) == (integrator == "whitted")
+    taps, replay = (Taps(), None) if cpu.bilinear else (None, None)
+    g_cpu = grads(cpu, torch.device("cpu"), taps)
+    for key in grad_mod.PARAM_KEYS:
+        want, got = g_cpu[key], g_gpu[key].cpu()
+        assert bool(torch.isfinite(got).all()), key
+        scale = float(want.abs().max())
+        excess = float(((got - want).abs() - 1e-3 * want.abs()).max())
+        l1 = float((got - want).abs().sum() / want.abs().sum().clamp_min(1e-30))
+        atol = GRAD_ATOL_BILINEAR if cpu.bilinear and key in BILINEAR_KEYS else GRAD_ATOL
+        assert excess <= atol * scale, (
+            f"{key}: beyond rtol 1e-3 by {excess / scale:.3g} max|g| (max|g| {scale:.6g}), "
+            f"relative L1 error {l1:.3g}")
+        if cpu.bilinear and key in BILINEAR_KEYS:
+            assert l1 <= BILINEAR_L1, f"{key}: relative L1 error {l1:.3g}"
+    if cpu.bilinear:
+        # the witness: the card replaying the CPU's tap positions
+        replay = {}
+        g_replay = grads(gpu, cuda, taps)
+        assert replay["calls"] == len(taps.calls) and replay["taps"] > 0, replay
+        worst = {}
+        for key in grad_mod.PARAM_KEYS:
+            want, got = g_cpu[key], g_replay[key].cpu()
+            scale = float(want.abs().max())
+            excess = float(((got - want).abs() - 1e-3 * want.abs()).max())
+            worst[key] = excess / scale if scale > 0 else excess
+            assert excess <= GRAD_ATOL * scale, f"{key} with the taps replayed: {worst[key]:.3g}"
+        print(f"{config} {integrator}: taps replayed {replay}; the largest excess over rtol "
+              f"1e-3 in units of max|g|, per key: { {k: f'{v:.3g}' for k, v in worst.items()} }")
+    assert float(g_gpu["albedo"].abs().sum()) > 0 and float(g_gpu["light_color"].abs().sum()) > 0
+    assert (float(g_gpu["texels"].abs().sum()) > 0) == config.endswith("bilinear")

@@ -248,8 +248,12 @@ def test_render_adaptive_drops_nothing():
     )
     assert out["dropped"] == 0 and out["cap_factor"] == 0.01 and not grows
     assert out["levels"] > 1  # the teapot's dielectric makes children
-    with pytest.raises(NotImplementedError):
-        whitted.render_adaptive(port, cam_mod.make_camera(8, 4), differentiable=True)
+    # the differentiable frame renders once too, through the host route
+    small = cam_mod.make_camera(8, 4)
+    diff = whitted.render_adaptive(port, small, differentiable=True)
+    assert diff["dropped"] == 0 and diff["cap_factor"] == 0.25
+    torch.testing.assert_close(diff["image"], whitted.render(port, small, level_kernel=False)["image"],
+                               atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("accel", ["grid", "kdtree", "wide"])

@@ -124,5 +124,6 @@ def jax_scene_arrays(scene):
     meta = dict(
         root=pk.root, stack_depth=pk.stack_depth, skydome_tex=scene.skydome_tex,
         shadow_quirk=scene.shadow_quirk, meta_in_shade=pk.meta_in_shade,
+        bilinear=scene.bilinear,
     )
     return arrays, meta
