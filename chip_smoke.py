@@ -125,16 +125,42 @@ Gradients (`diff/`), on the main scene and camera:
    texels, at the target's `spp_index` (common random numbers): the loss
    after the last step below the first step's.
 
+The user surface (`cli.py`, `render/basics.py`, `layout="mono"`, the
+megapass), on the main scene and camera:
+
+10. (a) `cli.main` in process on the card: the path tracer at 8 samples
+    with a checkpoint every 4, then resumed to 12; the resumed film's
+    accumulator within 1e-6 relative of an uninterrupted 12-sample run,
+    its PNG decoding (`io/image.decode_png`) to the film's `to_rgb8`, one
+    JSONL record a step with the JAX package's keys; ms a step (the
+    records' median) and a whole step (`render_progressive` with its
+    logger) beside a bare `render_pass` in turns, and the energy; (b)
+    `--integrator whitted` (`render_adaptive`): `dropped` 0, its frame
+    against `whitted.render`'s within the parity tolerance, ms per frame;
+    (c) `--integrator basics`, then every AOV of `basics.AOV_KINDS` with
+    one closest-hit launch each, ms per AOV frame, and `basics.probe` at
+    the middle pixel of each object in the frame returning that object,
+    whose `obj_id` colour the frame shows there; (d) `layout="mono"` with
+    the BVH (K3, K1, K4), grid and KD tree (K2): a path-tracer pass and a
+    Whitted frame each at 1280x720, then 64x40 on the card against the CPU
+    (`rays_traced` exact, images within the parity tolerance except
+    fp-borderline pixels), and mono against TLAS ms per pass in turns, for
+    each accelerator at its defaults; (e)
+    `render_pass(samples_per_pass=4)` against four single passes at
+    `spp_index` b .. b + 3, three times in turns: the summed radiance
+    within 1e-6 relative, `rays_traced` equal, ms per sample of both.
+
 Each drive of a main path (one pass or one frame, a gradient or train
-step, or one probe run) sets every kernel's launch count to 0 just before
-it and reads the counts just after; every kernel of the path must have
-launched.
+step, a CLI run, or one probe run) sets every kernel's launch count to 0
+just before it and reads the counts just after; every kernel of the path
+must have launched.
 The line before the last is `{"kernels": [...]}`: per kernel its
 launches on the main paths over this run, its launches per pass and per
 frame on the default routes (`main_launches`: the path tracer at its
 default `wavefront_depths`, Whitted through its level kernel), its
 launches per value + grad step (`grad_launches`: the path tracer of 9a,
-Whitted of 9c), the PR
+Whitted of 9c), its launches through the CLI (`cli_launches`: a path-tracer
+step, a Whitted frame and a basics frame of phase 10), the PR
 that redesigned it (`redesigned`), its time and its plain version's on
 the main path's inputs (phase 3), and its bound: the larger of the bytes it
 must move (its ray inputs, the scene tables of its work and its outputs,
@@ -160,6 +186,7 @@ true, "device": {...}}`.
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -178,6 +205,14 @@ GRAD_STEPS, WHITTED_GRAD_STEPS, TRAIN_STEPS, GRAD_SPP = 8, 4, 5, 1
 GRAD_SMALL_DEPTH, GRAD_ATOL, GRAD_RTOL = 2, 2e-4, 1e-3
 WAVEFRONT_DEPTHS = (0, 1, 6)
 KERNEL_REPEATS = 20
+# phase 10: the CLI's samples, its checkpoint cadence and the resume's
+# target; mono-against-TLAS passes; the megapass's samples and repeats;
+# the keys of the JAX package's progressive records
+CLI_SPP, CLI_EVERY, CLI_RESUME = 8, 4, 12
+MONO_PASSES, MEGA_S, MEGA_REPEATS = 8, 4, 3
+JSONL_KEYS = {"step", "energy", "ms", "avg_ms", "fps", "primary_mrays_s", "rays_traced",
+              "total_traversal", "average_traversal", "peak_traversal", "total_tests",
+              "average_tests", "peak_tests"}
 PKG = "cpu_ray_tracer_tpu_torch"
 # the accelerator interchange: compile_scene arguments, the walk's kernels
 ACCELS = {"grid": dict(accel="grid"), "kdtree": dict(accel="kdtree"), "wide": dict(wide=True)}
@@ -453,9 +488,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port has no CPU fallback here", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    import numpy as np
+
+    from cpu_ray_tracer_tpu_torch import cli
     from cpu_ray_tracer_tpu_torch.benchmarks import leaf_tolerance, mxu_probe
     from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
     from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
+    from cpu_ray_tracer_tpu_torch.core import film as film_mod
     from cpu_ray_tracer_tpu_torch.diff import grad as grad_mod
     from cpu_ray_tracer_tpu_torch.diff.optimize import make_train_step
     from cpu_ray_tracer_tpu_torch.ops import (
@@ -465,9 +504,14 @@ def main() -> int:
     from cpu_ray_tracer_tpu_torch.ops.closest_hit import (
         closest_hit, closest_hit_plain, occluded, occluded_plain,
     )
-    from cpu_ray_tracer_tpu_torch.render import borderline, pathtracer, whitted
+    from cpu_ray_tracer_tpu_torch.io.image import decode_png
+    from cpu_ray_tracer_tpu_torch.render import (
+        basics, borderline, debug, pathtracer, progressive, whitted,
+    )
     from cpu_ray_tracer_tpu_torch.scene import query, synthetic
     from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
+    from cpu_ray_tracer_tpu_torch.utils import checkpoint as ckpt_mod
+    from cpu_ray_tracer_tpu_torch.utils import metrics as metrics_mod
 
     kernels = dict(closest_hit=closest_hit, occluded=occluded,
                    wavefront_pt=wavefront_pt.trace, whitted_wf=whitted_wf.trace_level0,
@@ -1303,6 +1347,232 @@ def main() -> int:
     if not final < losses[0]:
         raise AssertionError("the train steps did not lower the loss")
 
+    # --- 10. the user surface: the CLI, the AOVs, mono, the megapass -------
+    cli_dir = os.path.join(REPO, "build", "smoke_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
+
+    def at(name):
+        return os.path.join(cli_dir, name)
+
+    def records(name):
+        with open(at(name)) as f:
+            return [json.loads(line) for line in f.read().strip().splitlines()]
+
+    print(f"runtime flags: {json.dumps(metrics_mod.runtime_flags(dev))}")
+    cli_argv = ["--scene-xml", XML, "--width", str(WIDTH), "--height", str(HEIGHT),
+                "--depth-limit", str(DEPTH), "--device", "cuda",
+                "--cam-pos", ",".join(str(x) for x in CAMERA["pos"]),
+                "--cam-target", ",".join(str(x) for x in CAMERA["target"])]
+    pt_route, w_route = ["wavefront_pt", "closest_hit"], ["whitted_wf"]
+
+    def run_cli(label, argv, expected):
+        """One drive of `cli.main` in-process on the card; returns its
+        seconds and counts."""
+        rc, seconds, counts = drive(label, lambda: cli.main(cli_argv + argv), expected)
+        if rc != 0:
+            raise AssertionError(f"{label}: the CLI returned {rc}")
+        return seconds, counts
+
+    # (a) the path tracer: CLI_SPP samples with a checkpoint every
+    # CLI_EVERY, then a resume to CLI_RESUME; against one uninterrupted run
+    ck = at("film.npz")
+    pt_argv = ["--integrator", "pathtracer", "--checkpoint", ck,
+               "--checkpoint-every", str(CLI_EVERY)]
+    _, pt_counts = run_cli(f"cli pathtracer spp {CLI_SPP}", pt_argv + [
+        "--spp", str(CLI_SPP), "--out", at("pt_a.png"), "--metrics-jsonl", at("pt_a.jsonl")],
+        pt_route)
+    if ckpt_mod.load_film(ck, dev)[0].spp != CLI_SPP:
+        raise AssertionError("the checkpoint of the first run is not at its last sample")
+    run_cli(f"cli pathtracer resumed to {CLI_RESUME}", pt_argv + [
+        "--spp", str(CLI_RESUME), "--out", at("pt_b.png"), "--metrics-jsonl", at("pt_b.jsonl")],
+        pt_route)
+    resumed, _ = ckpt_mod.load_film(ck, dev)
+    run_cli(f"cli pathtracer spp {CLI_RESUME}", [
+        "--integrator", "pathtracer", "--spp", str(CLI_RESUME), "--checkpoint", at("whole.npz"),
+        "--checkpoint-every", str(CLI_RESUME), "--out", at("whole.png")], pt_route)
+    whole, _ = ckpt_mod.load_film(at("whole.npz"), dev)
+    beyond = int(((resumed.accum - whole.accum).abs() > 1e-6 * whole.accum.abs()).sum())
+    png = decode_png(at("pt_b.png"))
+    recs = records("pt_a.jsonl") + records("pt_b.jsonl")
+    step_ms = sorted(r["ms"] for r in recs)
+    # the CLI's whole step (`render_progressive` with its logger: the pass,
+    # the film's add, the energy, the traversal summary, the record)
+    # against a bare render_pass, in turns
+    film, logger = film_mod.make_film(HEIGHT, WIDTH, dev), metrics_mod.JsonlLogger(at("t.jsonl"))
+    turn_ms = {"step": [], "bare": []}
+    for i, key in enumerate(turns(list(turn_ms), CLI_SPP)):
+        if key == "step":
+            fn = lambda: progressive.render_progressive(scene, camera, film.spp + 1, DEPTH,
+                                                        film=film, logger=logger)
+        else:
+            fn = lambda p=i // 2: pathtracer.render_pass(scene, camera, p, DEPTH)
+        out, seconds, _ = drive(f"turns {key}", fn, pt_route)
+        film = out if key == "step" else film
+        turn_ms[key].append(1e3 * seconds)
+    logger.close()
+    med = {k: sorted(v)[len(v) // 2] for k, v in turn_ms.items()}
+    energy = float(film_mod.energy(resumed.mean()))
+    print(f"cli pathtracer {WIDTH}x{HEIGHT} depth {DEPTH}: spp {CLI_SPP} (checkpoint every "
+          f"{CLI_EVERY}), resumed to spp {resumed.spp}; accumulator against an uninterrupted "
+          f"spp {whole.spp} run: values beyond 1e-6 relative {beyond}; energy {energy:.6g}; "
+          f"the records' ms (the pass, median of {len(recs)}) {step_ms[len(recs) // 2]:.2f}, "
+          f"range {step_ms[0]:.2f}-{step_ms[-1]:.2f}; in turns, {CLI_SPP} each: a whole step "
+          f"{sum(turn_ms['step']) / CLI_SPP:.2f} ms (median {med['step']:.2f}), a bare "
+          f"render_pass {sum(turn_ms['bare']) / CLI_SPP:.2f} (median {med['bare']:.2f}); "
+          f"launches a step { {k: c / CLI_SPP for k, c in pt_counts.items() if c} }; "
+          f"{card_line}")
+    if resumed.spp != CLI_RESUME or whole.spp != CLI_RESUME or beyond:
+        raise AssertionError("the resumed film differs from the uninterrupted one")
+    if not np.array_equal(png, film_mod.to_rgb8(resumed.mean()).cpu().numpy()):
+        raise AssertionError("the PNG does not decode to the film's 8-bit frame")
+    if [r["step"] for r in recs] != list(range(1, CLI_RESUME + 1)) or any(
+            set(r) != JSONL_KEYS for r in recs):
+        raise AssertionError(f"the JSONL records: {[sorted(r) for r in recs[:2]]}")
+    if not (np.isfinite(energy) and energy > 0):
+        raise AssertionError(f"cli pathtracer: energy {energy}")
+
+    # (b) Whitted: the CLI (render_adaptive), then render_adaptive against
+    # render in process
+    _, w_counts = run_cli("cli whitted", ["--integrator", "whitted", "--out", at("w.png"),
+                                          "--metrics-jsonl", at("w.jsonl")], w_route)
+    w_rec = records("w.jsonl")[-1]
+    w_ms, w_out = [], None
+    for _ in range(ACCEL_FRAMES):
+        w_out, seconds, _ = drive("whitted render_adaptive",
+                                  lambda: whitted.render_adaptive(scene, camera, DEPTH), w_route)
+        w_ms.append(1e3 * seconds)
+    w_ref = whitted.render(scene, camera, DEPTH)["image"].cpu()
+    cmp = borderline.unexplained_pixels(routes[0], (wo, wd, None), w_out["image"].cpu(), w_ref)
+    w_png = decode_png(at("w.png")).astype(np.int32)
+    level = int(np.abs(w_png - film_mod.to_rgb8(w_ref).numpy().astype(np.int32)).max())
+    print(f"cli whitted {WIDTH}x{HEIGHT} depth {DEPTH}: ms {w_rec['ms']:.2f} (record), "
+          f"render_adaptive {sum(w_ms) / len(w_ms):.2f} ms/frame over {len(w_ms)}, dropped "
+          f"{w_out['dropped']}, against whitted.render: pixels beyond tolerance "
+          f"{cmp['bad'].numel()}, not fp-borderline {cmp['unexplained'].numel()}, PNG within "
+          f"{level} levels; launches a frame { {k: c for k, c in w_counts.items() if c} }")
+    if w_out["dropped"] != 0 or cmp["unexplained"].numel() or level > 1:
+        raise AssertionError("cli whitted: the frame differs from whitted.render's")
+
+    # (c) basics: the CLI, then every AOV, each one closest-hit launch
+    _, b_counts = run_cli("cli basics", ["--integrator", "basics", "--aov", "albedo",
+                                         "--out", at("b.png")], ["closest_hit"])
+    aovs, aov_ms = {}, {}
+    for aov in basics.AOV_KINDS:
+        basics.render(scene, camera, aov)  # warm-up
+        aovs[aov], seconds, counts = drive(f"basics {aov}",
+                                           lambda aov=aov: basics.render(scene, camera, aov),
+                                           ["closest_hit"])
+        if {k: c for k, c in counts.items() if c} != {"closest_hit": 1}:
+            raise AssertionError(f"basics {aov}: launches {counts}")
+        img = aovs[aov]
+        if img.shape != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"basics {aov}: bad frame")
+        aov_ms[aov] = time_cuda(lambda aov=aov: basics.render(scene, camera, aov), 5)
+    probe_ids = query.find_nearest(scene, wo, wd)["obj_idx"]
+    probed = {}  # the middle pixel of each object in the frame, probed
+    for obj in torch.unique(probe_ids).tolist():
+        where = torch.nonzero(probe_ids == obj).squeeze(1)
+        y, x = divmod(int(where[where.numel() // 2]), WIDTH)
+        p = basics.probe(scene, camera, x, y)
+        want = debug.id_color(torch.tensor(p["obj_idx"], device=dev))
+        if p["obj_idx"] != obj or not torch.equal(aovs["obj_id"][y, x], want):
+            raise AssertionError(f"probe at ({x}, {y}): object {p['obj_idx']}, the frame's "
+                                 f"{obj}, colour {aovs['obj_id'][y, x].tolist()}")
+        probed[obj] = (x, y, p["tri_idx"], p["t"])
+    print(f"basics {WIDTH}x{HEIGHT}: ms per AOV frame { {k: round(v, 4) for k, v in aov_ms.items()} }"
+          f", closest_hit once each; a probe of each object (x, y, tri, t) {probed} matches the "
+          f"obj_id frame; cli basics launches { {k: c for k, c in b_counts.items() if c} }")
+    if len(probed) < 5:  # sky, floor and the scene's meshes
+        raise AssertionError(f"the frame shows the objects {sorted(probed)} only")
+
+    # (d) layout="mono" with each accelerator: a pass and a frame at full
+    # size, then 64x40 on the card against the CPU
+    mono_scenes = {}
+    for acc in ("bvh", "grid", "kdtree"):
+        start = time.perf_counter()
+        m_cpu, m_info = compile_scene(XML, layout="mono", accel=acc, device="cpu")
+        m_gpu = copy.deepcopy(m_cpu).to(dev)
+        mono_scenes[acc] = m_gpu
+        walk = ["closest_hit_links"] if acc != "bvh" else None
+        pathtracer.render_pass(m_gpu, camera, 100, DEPTH)  # warm-up
+        (img, st), seconds, counts = drive(f"mono {acc} render_pass",
+                                           lambda sc=m_gpu: pathtracer.render_pass(sc, camera, 1, DEPTH),
+                                           walk or pt_route)
+        out, w_seconds, w_cnt = drive(f"mono {acc} whitted",
+                                      lambda sc=m_gpu: whitted.render(sc, camera, DEPTH),
+                                      walk + ["occluded_links"] if walk else w_route)
+        if (not bool(torch.isfinite(img).all()) or float(img.sum()) <= 0 or out["dropped"]
+                or float(out["image"].sum()) <= 0):
+            raise AssertionError(f"mono {acc}: bad frame")
+        img_gpu, st_gpu = pathtracer.render_pass(m_gpu, small, 1, DEPTH)
+        img_cpu, st_cpu = pathtracer.render_pass(m_cpu, small, 1, DEPTH)
+        pcmp = borderline.unexplained_pixels(
+            lambda oo, dd, ss, sc=m_cpu: pathtracer.sample_radiance(sc, oo, dd, ss, DEPTH)[0],
+            pathtracer.camera_rays(small, 1, "cpu"), img_gpu.cpu(), img_cpu)
+        wcmp = borderline.unexplained_pixels(
+            lambda oo, dd, _, sc=m_cpu: whitted.radiance(sc, oo, dd, DEPTH)[0], (so_, sd_, None),
+            whitted.render(m_gpu, small, DEPTH)["image"].cpu(),
+            whitted.render(m_cpu, small, DEPTH)["image"])
+        print(f"mono {acc}: {m_info.triangle_count} tris, {m_info.num_nodes} nodes, depth "
+              f"{m_info.tree_depth}, compiled and moved in {time.perf_counter() - start:.2f} s; "
+              f"{WIDTH}x{HEIGHT} pass {1e3 * seconds:.2f} ms, rays_traced {st['rays_traced']}, "
+              f"launches { {k: c for k, c in counts.items() if c} }; whitted frame "
+              f"{1e3 * w_seconds:.2f} ms, launches { {k: c for k, c in w_cnt.items() if c} }; "
+              f"64x40 cuda vs cpu: rays_traced {st_gpu['rays_traced']} vs {st_cpu['rays_traced']}, "
+              f"pixels beyond tolerance {pcmp['bad'].numel()}, not fp-borderline "
+              f"{pcmp['unexplained'].numel()}; whitted beyond tolerance {wcmp['bad'].numel()}, "
+              f"not fp-borderline {wcmp['unexplained'].numel()}")
+        if (st_gpu["rays_traced"] != st_cpu["rays_traced"] or pcmp["unexplained"].numel()
+                or wcmp["unexplained"].numel()):
+            raise AssertionError(f"mono {acc}: the card's render differs from the CPU's")
+    # mono against TLAS, each accelerator at its defaults, passes in turns
+    layouts = {}
+    for acc in ("bvh", "grid", "kdtree"):
+        layouts[f"tlas {acc}"] = scene if acc == "bvh" else gpu_scenes[acc]
+        layouts[f"mono {acc}"] = mono_scenes[acc]
+    layout_ms = {k: [] for k in layouts}
+    for i, key in enumerate(turns(list(layouts), MONO_PASSES)):
+        _, seconds, _ = drive(f"{key} render_pass",
+                              lambda sc=layouts[key], p=i // len(layouts): pathtracer.render_pass(
+                                  sc, camera, p + 1, DEPTH),
+                              pt_route if key.endswith("bvh") else ["closest_hit_links"])
+        layout_ms[key].append(1e3 * seconds)
+    print(f"render_pass {WIDTH}x{HEIGHT} depth {DEPTH}, {MONO_PASSES} passes each in turns: "
+          + ", ".join(f"{k} {sum(v) / len(v):.2f} ms/pass (median {sorted(v)[len(v) // 2]:.2f})"
+                      for k, v in layout_ms.items()))
+    del mono_scenes, layouts
+    torch.cuda.empty_cache()
+
+    # (e) the megapass: MEGA_S samples a pixel in one pass against as many
+    # single passes at spp_index b .. b + MEGA_S - 1, in turns
+    mega_ms, single_ms = [], []
+    pathtracer.render_pass(scene, camera, 100, DEPTH, samples_per_pass=MEGA_S)  # warm-up
+    for rep in range(MEGA_REPEATS):
+        base = 40 + MEGA_S * rep
+        (m_img, m_st), seconds, _ = drive(
+            f"megapass s={MEGA_S}", lambda b=base: pathtracer.render_pass(
+                scene, camera, b, DEPTH, samples_per_pass=MEGA_S), pt_route)
+        mega_ms.append(1e3 * seconds / MEGA_S)
+        total, rays = torch.zeros_like(m_img), 0
+        for k in range(MEGA_S):
+            (img, st), seconds, _ = drive("single pass", lambda p=base + k: pathtracer.render_pass(
+                scene, camera, p, DEPTH), pt_route)
+            total += img
+            rays += st["rays_traced"]
+            single_ms.append(1e3 * seconds)
+        beyond = int(((m_img - total).abs() > 1e-6 * total.abs()).sum())
+        if m_st["rays_traced"] != rays or beyond:
+            raise AssertionError(f"megapass at {base}: rays_traced {m_st['rays_traced']} vs {rays}, "
+                                 f"{beyond} values beyond 1e-6 relative")
+    print(f"megapass s={MEGA_S} {WIDTH}x{HEIGHT} depth {DEPTH}: {MEGA_REPEATS} megapasses, "
+          f"rays_traced and the summed radiance (1e-6 relative) equal to {MEGA_S} single passes "
+          f"each; ms per sample: megapass {sum(mega_ms) / len(mega_ms):.2f}, single passes "
+          f"{sum(single_ms) / len(single_ms):.2f}; {card_line}")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_launches = {key: dict(pathtracer_step=pt_counts[key] / CLI_SPP, whitted_frame=w_counts[key],
+                              basics_frame=b_counts[key]) for key in kernels}
+
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    wavefront_pt=("wavefront_pt.cu", "ops/pallas/wavefront_pt.py:165"),
@@ -1343,6 +1613,8 @@ def main() -> int:
         "launches": e["launches"],
         "main_launches": e["main"],
         "grad_launches": grad_launches.get(e["name"], dict(pathtracer=0, whitted=0)),
+        "cli_launches": cli_launches.get(
+            e["name"], dict(pathtracer_step=0, whitted_frame=0, basics_frame=0)),
         "redesigned": redesigned.get(e["name"]),
         "max_abs_err": e["result"]["max_abs_err"],
         "ms": e["result"]["ms"],

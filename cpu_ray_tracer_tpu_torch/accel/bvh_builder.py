@@ -11,29 +11,48 @@ reference (infra/bvh.cpp:63-178):
   (infra/model.cpp:78) is kept on purpose;
 * split plane from an 8-bin SAH sweep over the centroid extent per axis
   (FindBestSplitPlane), cost = triCount * half-area;
-* recursion stops at <= `LEAF_TARGET` triangles or when the best split
-  does not beat the parent cost (CalculateNodeCost);
+* recursion stops at <= `leaf_target` triangles (None: the reference's
+  2) or when the best split does not beat the parent cost
+  (CalculateNodeCost);
 * in-place partition of the triangle index array by centroid < splitPos.
 
-`FORCE_SPLIT_CAP`: a no-gain SAH stop with more than this many triangles
-falls back to a median split, bounding the leaf size.  Both values are the
-ones the JAX package's compiler sets for its packed kernel tables
-(scene/build.py:107-111 there).
+`force_split_cap`: a no-gain SAH stop with more than this many triangles
+falls back to a median split, bounding the leaf size (None: the
+reference's stop exactly).  The defaults `FORCE_SPLIT_CAP` and
+`LEAF_TARGET` are the values the JAX package's compiler sets for its packed
+kernel tables (scene/build.py:107-111 there); its parity mode sets both to
+None.  The build returns its `BuildStats` (the JAX package's
+accel/types.py:110-118).
 
 `thread_links` threads a tree or forest with per-octant hit and miss
 links for the link walk (`ops/link_walk.py`).
 
-The native C++ builder, the SBVH spatial-split build and the build
-statistics of the JAX package are not ported yet (ROADMAP).
+The native C++ builder and the SBVH spatial-split build of the JAX package
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 
 BINS = 8
 FORCE_SPLIT_CAP = 4
 LEAF_TARGET = 24
+
+
+@dataclasses.dataclass
+class BuildStats:
+    """Host-side build instrumentation, as the reference's buildTime us and
+    maxDepth (infra/bvh.cpp:6,22-23,111)."""
+
+    build_time_us: int = 0
+    max_depth: int = 0
+    num_nodes: int = 0
+    num_leaves: int = 0
+    max_leaf: int = 0
 
 
 def tri_centroids(tri_v: np.ndarray) -> np.ndarray:
@@ -69,10 +88,13 @@ class HostBVH:
         return self
 
 
-def build_bvh(tri_v: np.ndarray):
+def build_bvh(tri_v: np.ndarray, force_split_cap: int | None = FORCE_SPLIT_CAP,
+              leaf_target: int | None = LEAF_TARGET):
     """Build a binned-SAH BVH over triangles `tri_v` [N, 3, 3].
 
-    Returns (HostBVH, tri_indices [N] int32)."""
+    Returns (HostBVH, tri_indices [N] int32, BuildStats)."""
+    leaf_stop = 2 if leaf_target is None else leaf_target
+    t0 = time.perf_counter()
     n = tri_v.shape[0]
     cent = tri_centroids(tri_v)
     tmin = tri_v.min(axis=1)  # [N, 3] per-tri AABB (vertex min)
@@ -84,16 +106,18 @@ def build_bvh(tri_v: np.ndarray):
     bvh.left_first[root] = 0
     bvh.tri_count[root] = n
 
-    stack = [root]
+    stack = [(root, 0)]
+    max_depth = 0
     while stack:
-        node = stack.pop()
+        node, depth = stack.pop()
         first = int(bvh.left_first[node])
         count = int(bvh.tri_count[node])
         sl = idx[first : first + count]
         # UpdateNodeBounds: grow from vertices
         bvh.node_min[node] = tmin[sl].min(axis=0)
         bvh.node_max[node] = tmax[sl].max(axis=0)
-        if count <= LEAF_TARGET:
+        max_depth = max(max_depth, depth)
+        if count <= leaf_stop:
             continue
 
         axis = -1
@@ -133,7 +157,7 @@ def build_bvh(tri_v: np.ndarray):
                     split_pos = cmin + (cmax - cmin) / BINS * (i + 1)
         no_split_cost = count * _half_area(bvh.node_min[node], bvh.node_max[node])
         if axis < 0 or best_cost >= no_split_cost:
-            if count > FORCE_SPLIT_CAP:
+            if force_split_cap is not None and count > force_split_cap:
                 do_median = True
             else:
                 continue  # leaf (reference SAH no-gain stop)
@@ -148,7 +172,7 @@ def build_bvh(tri_v: np.ndarray):
             mask = cent[sl, axis] < split_pos
             left_count = int(mask.sum())
             if left_count == 0 or left_count == count:
-                if count > FORCE_SPLIT_CAP:
+                if force_split_cap is not None and count > force_split_cap:
                     order = np.argsort(cent[sl, axis], kind="stable")
                     idx[first : first + count] = sl[order]
                     left_count = count // 2
@@ -169,10 +193,18 @@ def build_bvh(tri_v: np.ndarray):
         bvh.axis[node] = axis
         bvh.left_first[node] = li
         bvh.tri_count[node] = 0
-        stack.append(ri)
-        stack.append(li)
+        stack.append((ri, depth + 1))
+        stack.append((li, depth + 1))
 
-    return bvh.trim(), idx
+    bvh.trim()
+    stats = BuildStats(
+        build_time_us=int((time.perf_counter() - t0) * 1e6),
+        max_depth=max_depth,
+        num_nodes=int(bvh.nodes_used),
+        num_leaves=int((bvh.tri_count > 0).sum()),
+        max_leaf=int(bvh.tri_count.max()),
+    )
+    return bvh, idx, stats
 
 
 def thread_links(left, right, tri_count, axis, roots=None) -> tuple[np.ndarray, np.ndarray]:

@@ -10,12 +10,18 @@ as cell forests (`accel/cell_tree.py`).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
+from cpu_ray_tracer_tpu_torch.accel.bvh_builder import BuildStats
 
-def build_grid(tri_v: np.ndarray, max_res: int = 128) -> dict:
-    """tri_v [N, 3, 3] -> dict(bounds_min, bounds_max, resolution (rx, ry,
-    rz), cell_start int32 [cells + 1], cell_tris int32, max_cell_len)."""
+
+def build_grid(tri_v: np.ndarray, max_res: int = 128) -> tuple[dict, BuildStats]:
+    """tri_v [N, 3, 3] -> (dict(bounds_min, bounds_max, resolution (rx, ry,
+    rz), cell_start int32 [cells + 1], cell_tris int32, max_cell_len),
+    BuildStats: cells as nodes, non-empty cells as leaves)."""
+    t0 = time.perf_counter()
     n = tri_v.shape[0]
     tmin = tri_v.min(axis=1)
     tmax = tri_v.max(axis=1)
@@ -54,11 +60,18 @@ def build_grid(tri_v: np.ndarray, max_res: int = 128) -> dict:
     np.add.at(cell_start, cell_ids + 1, 1)
     cell_start = np.cumsum(cell_start)
     lens = np.diff(cell_start)
+    stats = BuildStats(
+        build_time_us=int((time.perf_counter() - t0) * 1e6),
+        max_depth=0,
+        num_nodes=n_cells,
+        num_leaves=int((lens > 0).sum()),
+        max_leaf=int(lens.max()) if n_cells else 0,
+    )
     return dict(
         bounds_min=bmin.astype(np.float32),
         bounds_max=bmax.astype(np.float32),
         resolution=(rx, ry, rz),
         cell_start=cell_start.astype(np.int32),
         cell_tris=tri_ids,
-        max_cell_len=int(lens.max()) if n_cells else 0,
-    )
+        max_cell_len=stats.max_leaf,
+    ), stats

@@ -12,16 +12,22 @@ blas_kdtree.h:3).  The port walks KD trees as cell forests
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+
+from cpu_ray_tracer_tpu_torch.accel.bvh_builder import BuildStats
 
 
 def build_kdtree(
     tri_v: np.ndarray, max_build_depth: int = 20, leaf_size: int = 2, sah: bool = False,
     bins: int = 8,
-) -> dict:
-    """tri_v [N, 3, 3] -> dict(split_axis (-1 on leaves), split_dist, left,
-    right, first, count, tri_ids, bounds_min, bounds_max, max_depth,
-    max_leaf); node 0 is the root, children are numbered after parents."""
+) -> tuple[dict, BuildStats]:
+    """tri_v [N, 3, 3] -> (dict(split_axis (-1 on leaves), split_dist,
+    left, right, first, count, tri_ids, bounds_min, bounds_max, max_depth,
+    max_leaf), BuildStats); node 0 is the root, children are numbered after
+    parents."""
+    t0 = time.perf_counter()
     n = tri_v.shape[0]
     tmin = tri_v.min(axis=1)
     tmax = tri_v.max(axis=1)
@@ -49,8 +55,10 @@ def build_kdtree(
         cursor[0] += len(ids)
 
     stack = [(new_node(), np.arange(n, dtype=np.int32), root_min.copy(), root_max.copy(), 0)]
+    max_depth_seen = 0
     while stack:
         node, ids, bmin, bmax, depth = stack.pop()
+        max_depth_seen = max(max_depth_seen, depth)
         if len(ids) <= leaf_size or depth >= max_build_depth:
             make_leaf(node, ids)
             continue
@@ -81,6 +89,13 @@ def build_kdtree(
 
     counts = np.asarray(count, np.int32)
     leaf_counts = counts[np.asarray(split_axis) == -1]
+    stats = BuildStats(
+        build_time_us=int((time.perf_counter() - t0) * 1e6),
+        max_depth=max_depth_seen,
+        num_nodes=len(split_axis),
+        num_leaves=int(leaf_counts.size),
+        max_leaf=int(leaf_counts.max()) if leaf_counts.size else 0,
+    )
     return dict(
         split_axis=np.asarray(split_axis, np.int32),
         split_dist=np.asarray(split_dist, np.float32),
@@ -92,8 +107,8 @@ def build_kdtree(
         bounds_min=root_min.astype(np.float32),
         bounds_max=root_max.astype(np.float32),
         max_depth=max_build_depth,
-        max_leaf=int(leaf_counts.max()) if leaf_counts.size else 0,
-    )
+        max_leaf=stats.max_leaf,
+    ), stats
 
 
 def _sah_split(tmin, tmax, bmin, bmax, bins):

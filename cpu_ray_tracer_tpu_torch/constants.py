@@ -1,6 +1,6 @@
 """Global numeric constants, the same float32 values as the JAX package's
-`cpu_ray_tracer_tpu/constants.py` (the subset the path tracer and the
-Whitted tracer use)."""
+`cpu_ray_tracer_tpu/constants.py` (the subset the integrators and the
+render configuration use)."""
 
 import numpy as np
 
@@ -13,6 +13,10 @@ RAY_FAR = np.float32(1e34)
 TRI_EPS = np.float32(1e-4)
 # Shading offset epsilon (2. WhittedStyle/renderer.h:12).
 SHADE_EPS = np.float32(1e-3)
+
+# Default render resolution of the reference (template/camera.h:4-5).
+SCRWIDTH = 1024
+SCRHEIGHT = 640
 
 # Depth limit of the path tracer (3. PathTracer/renderer.h:53).
 DEPTH_LIMIT = 5

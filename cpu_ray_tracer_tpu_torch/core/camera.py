@@ -6,7 +6,8 @@ through pixel coordinates (x, y) bilerps topLeft/topRight/bottomLeft by
 
 `lane_order` gives the order in which the fused kernels take a frame's
 camera rays: a warp of 32 lanes takes an 8x4 tile of pixels rather than a
-1x32 strip of a scanline, so that its rays walk the scene together."""
+1x32 strip of a scanline, so that its rays walk the scene together; with
+several samples a pixel, each pixel's lane becomes its adjacent samples."""
 
 from __future__ import annotations
 
@@ -103,20 +104,24 @@ TILE_W, TILE_H = 8, 4  # pixels of a warp's tile in `lane_order`
 
 
 @functools.lru_cache(maxsize=16)
-def _lane_order(width: int, height: int, device: torch.device) -> torch.Tensor:
+def _lane_order(width: int, height: int, samples: int, device: torch.device) -> torch.Tensor:
     ys, xs = np.divmod(np.arange(width * height), width)
     tiles_x = -(-width // TILE_W)
     key = ((ys // TILE_H) * tiles_x + xs // TILE_W) * (TILE_W * TILE_H) \
         + (ys % TILE_H) * TILE_W + xs % TILE_W
-    return torch.from_numpy(np.argsort(key, kind="stable").astype(np.int32)).to(device)
+    pixels = np.argsort(key, kind="stable")
+    rays = pixels[:, None] * samples + np.arange(samples)
+    return torch.from_numpy(rays.reshape(-1).astype(np.int32)).to(device)
 
 
-def lane_order(cam: Camera, device=device_mod.DEFAULT) -> torch.Tensor:
-    """int32 [W*H], made once per camera size and device: entry j is the
-    scanline index of the pixel whose ray lane j of a fused kernel takes
-    (`ops/wavefront_pt.trace`, `ops/whitted_wf.trace_level0`).  The frame
-    is cut into 8x4 tiles in scanline order of tiles, each tile's pixels in
-    scanline order, so a warp of 32 lanes takes one tile; tiles at the
-    right and bottom edges are narrower or shorter and share a warp with
-    the next."""
-    return _lane_order(cam.width, cam.height, device_mod.resolve(device))
+def lane_order(cam: Camera, device=device_mod.DEFAULT, samples: int = 1) -> torch.Tensor:
+    """int32 [samples*W*H], made once per camera size, sample count and
+    device: entry j is the index of the ray that lane j of a fused kernel
+    takes (`ops/wavefront_pt.trace`, `ops/whitted_wf.trace_level0`), among
+    a frame's rays in pixel-major scanline order (`samples` adjacent rays a
+    pixel).  The frame is cut into 8x4 tiles in scanline order of tiles,
+    each tile's pixels in scanline order, so a warp of 32 lanes takes one
+    tile (at one sample a pixel); tiles at the right and bottom edges are
+    narrower or shorter and share a warp with the next.  Each pixel's
+    samples take adjacent lanes."""
+    return _lane_order(cam.width, cam.height, samples, device_mod.resolve(device))

@@ -45,8 +45,10 @@ def random_float(state: torch.Tensor):
     return s, s.to(torch.float32) * UINT_TO_FLOAT
 
 
-def pixel_seeds(pixel_ids: torch.Tensor, spp: int, salt: int = 1799) -> torch.Tensor:
+def pixel_seeds(pixel_ids: torch.Tensor, spp, salt: int = 1799) -> torch.Tensor:
     """Per-ray seeds keyed by (pixel, sample index): InitSeed(pixel + salt *
-    spp), all in uint32 arithmetic."""
-    base = (pixel_ids.to(torch.int64) + ((salt * int(spp)) & MASK)) & MASK
-    return init_seed(base)
+    spp), all in uint32 arithmetic.  `spp` is an int, or an integer tensor
+    of per-ray sample indices (a megapass salts sample k of a pixel with
+    spp_index + k)."""
+    spp = torch.as_tensor(spp, dtype=torch.int64, device=pixel_ids.device) & MASK
+    return init_seed((pixel_ids.to(torch.int64) + salt * spp) & MASK)

@@ -37,6 +37,12 @@ def mat_translate(v) -> np.ndarray:
     return m
 
 
+def mat_scale(v) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = v
+    return m
+
+
 def mat_rotate_x(a: float) -> np.ndarray:
     m = np.eye(4, dtype=np.float32)
     ca, sa = np.cos(a, dtype=np.float32), np.sin(a, dtype=np.float32)

@@ -7,7 +7,8 @@ decode to 8 bits, expand greyscale to RGB, drop alpha, return float32 in
 
 PNG is decoded here with `zlib` and numpy, so the port needs no imaging
 library: 8-bit greyscale, grey+alpha, RGB and RGBA, non-interlaced, all
-five scanline filter types.
+five scanline filter types.  `write_png` encodes a rendered frame (8-bit
+RGB, filter type 0) the same way.
 """
 
 from __future__ import annotations
@@ -68,6 +69,24 @@ def decode_png(path: str) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = raw.reshape(height, 1 + width * channels)
     return _unfilter(rows[:, 0], rows[:, 1:].reshape(height, width, channels))
+
+
+def write_png(path: str, img_u8: np.ndarray) -> None:
+    """Write uint8 [H, W, 3] as an 8-bit RGB PNG (no filtering)."""
+    img = np.ascontiguousarray(img_u8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png: expected uint8 [H, W, 3], got {img.dtype} {img.shape}")
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    data = (_PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _unfilter(kinds: np.ndarray, filtered: np.ndarray) -> np.ndarray:

@@ -251,27 +251,44 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
     )
 
 
-def camera_rays(camera: cam_mod.Camera, spp_index: int, device=device_mod.DEFAULT):
-    """Jittered primary rays (o, d) [W*H, 3] in scanline order and their
-    seeds, on `device` (the card unless the caller asks for another): pass
-    `spp_index` salts each pixel's seed (3. PathTracer/renderer.cpp:117-131)."""
-    pixel_ids = torch.arange(camera.width * camera.height, dtype=torch.int64,
-                             device=device_mod.resolve(device))
-    seeds = rng.pixel_seeds(pixel_ids, spp_index)
+def camera_rays(camera: cam_mod.Camera, spp_index: int, device=device_mod.DEFAULT,
+                samples_per_pass: int = 1):
+    """Jittered primary rays (o, d) [s*W*H, 3] and their seeds, `s` =
+    `samples_per_pass` adjacent rays a pixel in scanline order of pixels,
+    on `device` (the card unless the caller asks for another): sample k of
+    a pixel salts its seed with `spp_index` + k (3. PathTracer/
+    renderer.cpp:117-131), so the s samples are those of s one-sample
+    passes at spp_index, spp_index + 1, ..."""
+    if samples_per_pass < 1:
+        raise ValueError(f"samples_per_pass={samples_per_pass}: expected 1 or more")
+    s, dev = samples_per_pass, device_mod.resolve(device)
+    n = camera.width * camera.height
+    pixel_ids = torch.arange(n, dtype=torch.int64, device=dev).repeat_interleave(s)
+    sample_k = torch.arange(s, dtype=torch.int64, device=dev).repeat(n)
+    seeds = rng.pixel_seeds(pixel_ids, spp_index + sample_k)
     seeds, jx = rng.random_float(seeds)
     seeds, jy = rng.random_float(seeds)
-    o, d = cam_mod.full_frame_rays(camera, jitter_x=jx, jitter_y=jy)
+    xs, ys = cam_mod.pixel_grid(camera, dev)
+    o, d = cam_mod.primary_rays(camera, xs.repeat_interleave(s) + jx,
+                                ys.repeat_interleave(s) + jy)
     return o, d, seeds
 
 
 def render_pass(scene, camera: cam_mod.Camera, spp_index: int,
                 depth_limit: int = constants.DEPTH_LIMIT,
-                wavefront_depths: int | None = None, differentiable: bool = False):
-    """One progressive pass, one jittered sample per pixel, on the scene's
-    device.  Returns (radiance [H, W, 3], stats); with `differentiable`
-    the radiance carries gradients to the scene's parameters
+                wavefront_depths: int | None = None, differentiable: bool = False,
+                samples_per_pass: int = 1):
+    """One progressive pass of `samples_per_pass` jittered samples a pixel
+    (the JAX package's megapass, render/pathtracer.py:1413-1476: the rays
+    pixel-major, sample k salted `spp_index` + k, so it draws the samples
+    of that many one-sample passes), on the scene's device.  Returns
+    (radiance [H, W, 3], the SUM of each pixel's samples, and stats, with
+    `rays_traced` over every sample); with `differentiable` the radiance
+    carries gradients to the scene's parameters
     (`diff/grad.apply_params`)."""
-    o, d, seeds = camera_rays(camera, spp_index, scene.device)
+    s = samples_per_pass
+    o, d, seeds = camera_rays(camera, spp_index, scene.device, s)
     radiance, stats = sample_radiance(scene, o, d, seeds, depth_limit, wavefront_depths,
-                                      cam_mod.lane_order(camera, scene.device), differentiable)
-    return radiance.reshape(camera.height, camera.width, 3), stats
+                                      cam_mod.lane_order(camera, scene.device, s),
+                                      differentiable)
+    return radiance.reshape(camera.height, camera.width, s, 3).sum(dim=2), stats

@@ -1,22 +1,37 @@
 """Host-side scene compiler: XML spec -> DeviceScene.
 
-The port of the JAX package's `cpu_ray_tracer_tpu/scene/build.py` for
-`layout="tlas"`, `instancing="baked"`: the reference's TLASFileScene
-(infra/scene/tlas_file_scene.cpp) with every instance baked into world
-space.  The three accelerators are interchangeable and give the same hits:
+The port of the JAX package's `cpu_ray_tracer_tpu/scene/build.py` with
+`instancing="baked"`, in its two layouts, the reference's two XML scene
+classes:
 
-* `accel="bvh"`: all BLAS nodes fused under the TLAS into one node forest
-  (`_build_unified_tlas`, scene/build.py:601-702 there), walked by the
-  binary stack walk; `wide=True` collapses it into 8-wide nodes for the
-  wide walk, and `wide="bounce"` keeps the binary walk for the wavefront
-  and Whitted kernels and sends only the host queries wide (the JAX
-  package's `CRT_WIDE=1` / `bounce`, scene/build.py:379-440);
+* `layout="tlas"`: TLASFileScene (infra/scene/tlas_file_scene.cpp), one
+  tree per object (its scale baked into the vertices, then its rigid
+  transform applied), every instance baked into world space;
+* `layout="mono"`: FileScene (infra/scene/file_scene.cpp), every object's
+  triangles transformed by its full T @ S and merged under ONE tree
+  (scene/build.py:194-262 there).  Normals take the inverse-transpose and
+  are normalised; `parity=True` keeps the reference's quirk, the
+  rotation-transpose of the full matrix (model.cpp:57, :70-72).
+
+The three accelerators are interchangeable and give the same hits:
+
+* `accel="bvh"`: on `tlas` all BLAS nodes fused under the TLAS into one
+  node forest (`_build_unified_tlas`, scene/build.py:601-702 there), on
+  `mono` one BVH with root 0; either is walked by the binary stack walk;
+  `wide=True` collapses it into 8-wide nodes for the wide walk, and
+  `wide="bounce"` keeps the binary walk for the wavefront and Whitted
+  kernels and sends only the host queries wide (the JAX package's
+  `CRT_WIDE=1` / `bounce`, scene/build.py:379-440);
 * `accel="grid"` / `"kdtree"`: a grid or KD tree per instance over its
-  world-baked triangles, compiled to cell trees and merged into one forest
-  walked by hit/miss links (scene/build.py:281-333 there).
+  world-baked triangles (`mono`: one over all triangles), compiled to cell
+  trees and merged into one forest walked by hit/miss links
+  (scene/build.py:281-333 there).
 
-Node numbering, builds and the leaf triangle order are the JAX package's,
-so the two packages' tables compare one to one.
+`force_split_cap` and the BVH leaf size are the builder's
+(`accel/bvh_builder.py`); `parity=True` sets both to the reference's
+(None, leaves of 2), as the JAX package's parity route does.  Node
+numbering, builds and the leaf triangle order are the JAX package's, so
+the two packages' tables compare one to one.
 """
 
 from __future__ import annotations
@@ -52,19 +67,22 @@ def _object_matrix(obj) -> np.ndarray:
 
 def compile_scene(
     xml_path: str, layout: str = "tlas", accel: str = "bvh", instancing: str = "baked",
+    parity: bool = False, force_split_cap: int | None = bvh_builder.FORCE_SPLIT_CAP,
     shadow_quirk: bool = True, wide: bool | str = False, bilinear: bool = False,
     device=device_mod.DEFAULT,
 ) -> tuple[DeviceScene, SceneInfo]:
     """Compile an XML scene to a DeviceScene on `device` (the card unless
     the caller asks for another; without a CUDA device the default
-    raises).  `accel` "bvh", "grid" or "kdtree"; `wide` False, True or
-    "bounce" for "bvh" (module docstring); `shadow_quirk` as the JAX
-    package's; `bilinear` picks the bilinear texture tap, which carries
+    raises).  `layout` "tlas" or "mono"; `accel` "bvh", "grid" or
+    "kdtree"; `wide` False, True or "bounce" for "bvh" (module docstring);
+    `parity` the reference's normals and BVH stops; `force_split_cap` the
+    BVH builder's (None: the reference's SAH stop); `shadow_quirk` as the
+    JAX package's; `bilinear` picks the bilinear texture tap, which carries
     texel gradients and keeps the scene off the wavefront and Whitted
     level kernels (`DeviceScene` doc)."""
     dev = device_mod.resolve(device)
-    if layout != "tlas":
-        raise NotImplementedError("layout='mono' is not ported yet (ROADMAP queue 1, item 10)")
+    if layout not in ("tlas", "mono"):
+        raise ValueError(f"layout={layout!r}: expected 'tlas' or 'mono'")
     if instancing != "baked":
         raise NotImplementedError("instancing='shared' is not ported yet (ROADMAP queue 1, item 13)")
     if accel not in ("bvh", "grid", "kdtree"):
@@ -72,6 +90,9 @@ def compile_scene(
     if wide not in (False, True, "bounce") or (wide and accel != "bvh"):
         raise ValueError(f"wide={wide!r} with accel={accel!r}: wide is False, True or "
                          "'bounce', and only for accel='bvh'")
+    leaf_target = bvh_builder.LEAF_TARGET
+    if parity:
+        force_split_cap = leaf_target = None
     spec = load_scene_xml(xml_path)
     xml_dir = spec.xml_dir
 
@@ -102,7 +123,7 @@ def compile_scene(
     rows.append({"albedo": (255 / 255.0, 192 / 255.0, 203 / 255.0)})  # error pink
     materials = make_table(rows)
 
-    inst_v, inst_n, inst_uv, inst_obj, inst_mat = _instances(spec)
+    inst_v, inst_n, inst_uv, inst_obj, inst_mat = _instances(spec, layout, parity)
     all_v = np.concatenate(inst_v, axis=0)
     all_n = np.concatenate(inst_n, axis=0)
     all_uv = np.concatenate(inst_uv, axis=0)
@@ -122,7 +143,15 @@ def compile_scene(
     ids = dict(obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat))
     wide_pack = None
     if accel == "bvh":
-        host = _build_unified_tlas(inst_v)
+        if layout == "mono":
+            h, idx, build_stats = bvh_builder.build_bvh(all_v, force_split_cap, leaf_target)
+            host = dict(node_min=h.node_min, node_max=h.node_max, left=h.left, right=h.right,
+                        axis=h.axis, left_first=h.left_first, tri_count=h.tri_count,
+                        tri_indices=idx, root=0)
+            blas_stats = []
+        else:
+            host, build_stats, blas_stats = _build_unified_tlas(inst_v, force_split_cap,
+                                                                leaf_target)
         packed = pack.pack_bvh(**host, tri_v=all_v, shade16=shade16, **ids)
         if wide:
             wide_pack = wide_mod.pack_wide(
@@ -131,7 +160,11 @@ def compile_scene(
                 packed.nodes[:, pack.N_FIRST], packed.nodes[:, pack.N_COUNT], packed.leaf_codes,
             )
     else:
-        packed = _build_cell_forest(accel, inst_v, all_v, shade16, ids)
+        # mono: one tree over all triangles
+        packed, blas_stats = _build_cell_forest(
+            accel, [all_v] if layout == "mono" else inst_v, all_v, shade16, ids)
+        # mono: the one tree's build; tlas: no BVH over the instances
+        build_stats = blas_stats.pop() if layout == "mono" else bvh_builder.BuildStats()
 
     light_t = vm.mat_translate(tuple(spec.light_pos))
     scene = DeviceScene(
@@ -156,14 +189,17 @@ def compile_scene(
         object_count=len(spec.objects),
         num_nodes=int(packed.nodes.shape[0]),
         tree_depth=packed.depth,
+        build_stats=build_stats,
+        blas_stats=blas_stats,
     )
     return scene.to(dev), info
 
 
-def _instances(spec):
+def _instances(spec, layout: str = "tlas", parity: bool = False):
     """Per instance: world-space vertices [N, 3, 3], normals, uvs, object
-    ids and material ids, the scale baked into the object's vertices and
-    then its rigid transform applied."""
+    ids and material ids.  `tlas`: the scale baked into the object's
+    vertices and then its rigid transform applied; `mono`: the full T @ S
+    (module docstring)."""
     mesh_cache = {}
     inst_v, inst_n, inst_uv, inst_obj, inst_mat = [], [], [], [], []
     for i, obj in enumerate(spec.objects):
@@ -172,10 +208,17 @@ def _instances(spec):
             mesh_cache[path] = load_obj(path)
         v, n, uv = mesh_cache[path].triangles()
         t = _object_matrix(obj)
-        wv = (v * obj.scale[None, None, :]) @ t[:3, :3].T + t[:3, 3]
-        # normals: object normals rotated by T, unscaled, as the reference
-        # (blas_bvh.cpp:391-398)
-        wn = n @ t[:3, :3].T
+        if layout == "mono":
+            full = t @ vm.mat_scale(tuple(obj.scale))
+            wv = v @ full[:3, :3].T + full[:3, 3]
+            rot = full[:3, :3].T if parity else np.linalg.inv(full[:3, :3]).T
+            wn = n @ rot.T
+            wn = wn / np.maximum(np.linalg.norm(wn, axis=-1, keepdims=True), 1e-20)
+        else:
+            wv = (v * obj.scale[None, None, :]) @ t[:3, :3].T + t[:3, 3]
+            # normals: object normals rotated by T, unscaled, as the
+            # reference (blas_bvh.cpp:391-398)
+            wn = n @ t[:3, :3].T
         inst_v.append(wv.astype(np.float32))
         inst_n.append(wn.astype(np.float32))
         inst_uv.append(uv.astype(np.float32))
@@ -190,7 +233,7 @@ def tlas_node_tables(xml_path: str) -> tuple[np.ndarray, np.ndarray]:
     [8, 2, M], threaded from the TLAS root.  The JAX package's
     `pk.node_aabb` and `pk.node_links` (accel/pack.py:169-175,
     scene/build.py:672 there), which its node-step probe reads."""
-    host = _build_unified_tlas(_instances(load_scene_xml(xml_path))[0])
+    host = _build_unified_tlas(_instances(load_scene_xml(xml_path))[0])[0]
     hit, miss = bvh_builder.thread_links(host["left"], host["right"], host["tri_count"],
                                          host["axis"], roots=[host["root"]])
     aabb = np.concatenate([host["node_min"].T, host["node_max"].T], axis=0)
@@ -198,40 +241,45 @@ def tlas_node_tables(xml_path: str) -> tuple[np.ndarray, np.ndarray]:
             np.ascontiguousarray(np.stack([hit, miss], axis=1), dtype=np.int32))
 
 
-def _build_cell_forest(accel: str, inst_v, all_v, shade16, ids: dict) -> pack.PackedBVH:
+def _build_cell_forest(accel: str, inst_v, all_v, shade16, ids: dict):
     """A grid or KD tree per instance over its world-baked triangles, with
     global triangle ids, compiled to cell trees within the node budget and
-    merged into one forest (the JAX package's scene/build.py:281-333)."""
+    merged into one forest (the JAX package's scene/build.py:281-333).
+    Returns the packed forest and each tree's BuildStats."""
     # the JAX package's node cap for the merged forest (a TPU SMEM budget
     # there), kept so that both packages compile the same forest
     budget = max(8192 // len(inst_v), 512)
-    trees, tri_base = [], 0
+    trees, stats, tri_base = [], [], 0
     if accel == "kdtree":
         # one table of triangle bounds for clipping leaf bounds, by global id
         tri_bounds = np.stack([all_v.min(axis=1), all_v.max(axis=1)], axis=1)
     for v in inst_v:
         if accel == "grid":
-            host = grid_builder.build_grid(v)
+            host, st = grid_builder.build_grid(v)
             host["cell_tris"] = host["cell_tris"] + tri_base
             trees.append(cell_tree.tree_from_grid(host, max_nodes=budget))
         else:
-            host = kdtree_builder.build_kdtree(v)
+            host, st = kdtree_builder.build_kdtree(v)
             host["tri_ids"] = host["tri_ids"] + tri_base
             host["tri_bounds"] = tri_bounds
             trees.append(cell_tree.tree_from_kd(host, max_nodes=budget))
+        stats.append(st)
         tri_base += v.shape[0]
     tree, roots = cell_tree.merge_trees(trees) if len(trees) > 1 else (trees[0], None)
-    return cell_tree.pack_tree(tree, all_v, shade16, roots=roots, **ids)
+    return cell_tree.pack_tree(tree, all_v, shade16, roots=roots, **ids), stats
 
 
-def _build_unified_tlas(inst_v: list[np.ndarray]) -> dict:
+def _build_unified_tlas(inst_v: list[np.ndarray], force_split_cap=bvh_builder.FORCE_SPLIT_CAP,
+                        leaf_target=bvh_builder.LEAF_TARGET):
     """Per-instance world-space BVHs + agglomerative TLAS, fused into one
     node forest: [TLAS interior][BLAS 0 nodes][BLAS 1 nodes]...  Returns the
-    host arrays `pack.pack_bvh` takes."""
-    blas_hosts, blas_idx, inst_bounds = [], [], []
+    host arrays `pack.pack_bvh` takes, the forest's BuildStats and each
+    BLAS's (scene/build.py:690-702 there)."""
+    blas_hosts, blas_idx, blas_stats, inst_bounds = [], [], [], []
     tri_base = 0
     for v in inst_v:
-        host, idx = bvh_builder.build_bvh(v)
+        host, idx, st = bvh_builder.build_bvh(v, force_split_cap, leaf_target)
+        blas_stats.append(st)
         blas_hosts.append(host)
         blas_idx.append(idx + tri_base)
         inst_bounds.append((host.node_min[0].copy(), host.node_max[0].copy()))
@@ -281,8 +329,17 @@ def _build_unified_tlas(inst_v: list[np.ndarray]) -> dict:
         axis[sl] = host.axis
         tri_idx_offset += idx.shape[0]
 
-    return dict(
+    host = dict(
         node_min=node_min, node_max=node_max, left=left, right=right, axis=axis,
         left_first=left_first, tri_count=tri_count,
         tri_indices=np.concatenate(blas_idx, axis=0), root=map_child(tlas.root),
     )
+    stats = bvh_builder.BuildStats(
+        build_time_us=0,
+        max_depth=1 + int(np.ceil(np.log2(max(len(inst_v), 2))))
+        + max(st.max_depth for st in blas_stats),
+        num_nodes=total_nodes,
+        num_leaves=int((tri_count > 0).sum()),
+        max_leaf=max(st.max_leaf for st in blas_stats),
+    )
+    return host, stats, blas_stats

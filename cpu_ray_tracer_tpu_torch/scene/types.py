@@ -67,6 +67,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cpu_ray_tracer_tpu_torch.accel.bvh_builder import BuildStats
 from cpu_ray_tracer_tpu_torch.accel.pack import N_COUNT, PackedBVH
 from cpu_ray_tracer_tpu_torch.accel.wide import PackedWide
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
@@ -76,13 +77,28 @@ from cpu_ray_tracer_tpu_torch.ops import surface
 
 @dataclasses.dataclass
 class SceneInfo:
-    """Host-side scene metadata."""
+    """Host-side scene metadata: counts, the size and depth of the tree the
+    walks take (`num_nodes`, `tree_depth`, as `DeviceScene.depth`), and the
+    builds' statistics (the data behind the reference's GetBuildTime /
+    GetMaxTreeDepth; the JAX package's scene/types.py:117-135):
+    `build_stats` of the scene's tree, and on the TLAS layout those of
+    each instance's tree in `blas_stats`."""
 
     name: str
     triangle_count: int
     object_count: int
     num_nodes: int
     tree_depth: int
+    build_stats: BuildStats
+    blas_stats: list = dataclasses.field(default_factory=list)
+
+    @property
+    def build_time_us(self) -> int:
+        return self.build_stats.build_time_us + sum(s.build_time_us for s in self.blas_stats)
+
+    @property
+    def max_tree_depth(self) -> int:
+        return max([self.build_stats.max_depth] + [s.max_depth for s in self.blas_stats])
 
 
 class DeviceScene(nn.Module):

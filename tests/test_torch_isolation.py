@@ -83,5 +83,5 @@ def test_every_kernel_module_is_covered():
                  "accel.grid_builder", "accel.kdtree_builder", "accel.wide",
                  "render.pathtracer", "render.whitted", "ops.leaf_probe", "ops.sync_probe",
                  "benchmarks.mxu_probe", "benchmarks.sync_probe", "benchmarks.leaf_tolerance",
-                 "diff.grad", "diff.optimize"):
+                 "diff.grad", "diff.optimize", "render.basics", "render.progressive", "cli"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -125,7 +125,8 @@ def test_scene_moves_with_to():
     assert len(list(scene.buffers())) == len(scene.state_dict())
 
 
-@pytest.mark.parametrize("kwargs", [dict(layout="mono"), dict(instancing="shared")])
+@pytest.mark.parametrize("kwargs", [dict(layout="mono", instancing="shared"),
+                                    dict(instancing="shared")])
 def test_other_configurations_not_ported_yet(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_scene(CUBE_XML, device="cpu", **kwargs)

@@ -28,14 +28,14 @@ def jax_reference_env(mp: pytest.MonkeyPatch) -> None:
     mp.setattr(native, "get_lib", lambda: None)
 
 
-def jax_compile(xml: str, **kwargs):
-    """JAX `compile_scene(layout="tlas", use_pallas=True, **kwargs)` in the
-    reference configuration."""
+def jax_compile(xml: str, layout: str = "tlas", **kwargs):
+    """JAX `compile_scene(layout=layout, use_pallas=True, **kwargs)` in the
+    reference configuration (`parity=True` turns the kernels off there)."""
     from cpu_ray_tracer_tpu.scene.build import compile_scene
 
     with pytest.MonkeyPatch.context() as mp:
         jax_reference_env(mp)
-        return compile_scene(xml, layout="tlas", use_pallas=True, **kwargs)
+        return compile_scene(xml, layout=layout, use_pallas=True, **kwargs)
 
 
 def jax_compile_wide(xml: str, **kwargs):
