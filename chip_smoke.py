@@ -150,6 +150,36 @@ megapass), on the main scene and camera:
     `spp_index` b .. b + 3, three times in turns: the summed radiance
     within 1e-6 relative, `rays_traced` equal, ms per sample of both.
 
+Shared instancing, animation and the primitive scene (same scene, view
+and depth):
+
+11. (a) `compile_scene(instancing="shared")` (3 instances of 2 meshes):
+    K1 against its plain version on every instance pass of a path-tracer
+    pass's primary rays and first bounce (closest hit) and of a Whitted
+    host-route frame's levels 0 and 1 (any hit), recorded (rays moved
+    into object space, masked by the instance's world-box cull, t0 the
+    running best): integers exact, floats within 1e-6 relative; times and
+    the live share of each pass; (b) the shared scene's host routes in
+    turns with the baked scene's (`wavefront_depths=0`,
+    `level_kernel=False`), 8 passes and 8 frames each after a warm-up: ms,
+    rays/s, K1 launches (the shared scene's 3 per host depth, the baked
+    scene's at the same `spp_index` 1), energy within 1e-3 of baked; the
+    primary hits' differences each fp-borderline or a Moller-Trumbore
+    determinant under TRI_EPS in one side's space (object space on the
+    shared scene, world space on the baked one), and the images' pixels
+    beyond tolerance fp-borderline on either scene but for at most 1% of
+    the frame (tests/test_instancing.py's image rule); (c)
+    `AnimatedScene.update` after `set_transform` against a full `build()`
+    and the baked compile, timed: hits bit-equal to the rebuild's, the
+    Whitted frame within the parity tolerance; (d)
+    `compile_primitive_scene(0.0)` and `(1.0)`: a Whitted frame, a pass
+    and the albedo and normal AOVs at 1280x720, timed, with no kernel
+    launched; 64x40 card against CPU except fp-borderline pixels;
+    `noise2d` bit-equal on 1,048,576 points; (e) `cli.main` with
+    `--instancing shared` on the card at 64x40 (path tracer, Whitted).
+    The kernels line gives K1 `instanced_launches`: per shared pass and
+    per shared Whitted frame.
+
 Each drive of a main path (one pass or one frame, a gradient or train
 step, a CLI run, or one probe run) sets every kernel's launch count to 0
 just before it and reads the counts just after; every kernel of the path
@@ -482,6 +512,7 @@ def counted(kernels: dict, fn):
 
 
 def main() -> int:
+    smoke_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -490,11 +521,12 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from cpu_ray_tracer_tpu_torch import cli
+    from cpu_ray_tracer_tpu_torch import cli, constants
     from cpu_ray_tracer_tpu_torch.benchmarks import leaf_tolerance, mxu_probe
     from cpu_ray_tracer_tpu_torch.benchmarks import sync_probe as sync_bench
     from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
     from cpu_ray_tracer_tpu_torch.core import film as film_mod
+    from cpu_ray_tracer_tpu_torch.core.noise import noise2d
     from cpu_ray_tracer_tpu_torch.diff import grad as grad_mod
     from cpu_ray_tracer_tpu_torch.diff.optimize import make_train_step
     from cpu_ray_tracer_tpu_torch.ops import (
@@ -509,7 +541,9 @@ def main() -> int:
         basics, borderline, debug, pathtracer, progressive, whitted,
     )
     from cpu_ray_tracer_tpu_torch.scene import query, synthetic
+    from cpu_ray_tracer_tpu_torch.scene.animate import AnimatedScene
     from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
+    from cpu_ray_tracer_tpu_torch.scene.primitive_scene import compile_primitive_scene
     from cpu_ray_tracer_tpu_torch.utils import checkpoint as ckpt_mod
     from cpu_ray_tracer_tpu_torch.utils import metrics as metrics_mod
 
@@ -1573,6 +1607,254 @@ def main() -> int:
     cli_launches = {key: dict(pathtracer_step=pt_counts[key] / CLI_SPP, whitted_frame=w_counts[key],
                               basics_frame=b_counts[key]) for key in kernels}
 
+    # --- 11. shared instancing, animation, the primitive scene --------------
+    # (a) K1 on instanced inputs: each instance pass of the primary rays and
+    # of the first bounce (closest hit, from a path-tracer pass) and of a
+    # Whitted frame's levels 0 and 1 (any hit), recorded, against the plain
+    # versions
+    start = time.perf_counter()
+    sh_cpu, sh_info = compile_scene(XML, instancing="shared", device="cpu")
+    sh_scene = copy.deepcopy(sh_cpu).to(dev)
+    n_inst = len(sh_scene.shared.inst_mesh)
+    print(f"shared scene: {sh_info.triangle_count} triangles in {n_inst} instances of "
+          f"{len(sh_scene.shared.meshes)} meshes (pool {sh_scene.pool.shape[0]}), inst_mesh "
+          f"{sh_scene.shared.inst_mesh}, compiled and moved in {time.perf_counter() - start:.2f} s")
+    ch_calls = recorded(query, "closest_hit",
+                        lambda: pathtracer.render_pass(sh_scene, camera, 1, DEPTH))
+    oc_calls = recorded(query, "occluded",
+                        lambda: whitted.render(sh_scene, camera, DEPTH, level_kernel=False))
+    if len(ch_calls) < 2 * n_inst or len(oc_calls) < 2 * n_inst:
+        raise AssertionError(f"instanced passes: {len(ch_calls)} closest, {len(oc_calls)} any")
+    for key, kernel, plain, calls, labels, names, any_walk in (
+            ("closest_hit", closest_hit, closest_hit_plain, ch_calls, ("primary", "bounce"),
+             stack_tables, None),
+            ("occluded", occluded, occluded_plain, oc_calls, ("Whitted level 0", "Whitted level 1"),
+             stack_tables[:2], stack_walk._walk_plain)):
+        for k in range(2 * n_inst):
+            args, _ = calls[k]
+            nr = args[1].shape[0]
+            r = compare(key, f"instanced {labels[k // n_inst]}, instance {k % n_inst}",
+                        lambda f=kernel, a=args: f(*a), lambda f=plain, a=args: f(*a), nr,
+                        work_of(args, names, 2, any_walk))
+            print(f"  live share {int(args[4].sum()) / nr:.4f} of {nr} rays, hits "
+                  f"{int((r['got']['slot'] >= 0).sum()) if key == 'closest_hit' else int(r['got']['out'].sum())}")
+            keep(key, r)
+
+    # (b) the shared scene's host routes in turns with the baked scene's
+    sh_configs = {"shared": sh_scene, "baked": scene}
+    inst_runs = {k: dict(seconds=[], counts=[], rays=0, film=torch.zeros(
+        (HEIGHT, WIDTH, 3), dtype=torch.float32, device=dev)) for k in sh_configs}
+    for sc in sh_configs.values():
+        pathtracer.render_pass(sc, camera, 100, DEPTH, 0)  # warm-up
+    for i, key in enumerate(turns(list(sh_configs), FRAMES)):
+        (img, stats), seconds, counts = drive(
+            f"{key} render_pass", lambda sc=sh_configs[key], p=i // 2: pathtracer.render_pass(
+                sc, camera, p + 1, DEPTH, 0), ["closest_hit"])
+        r = inst_runs[key]
+        r["film"] += img
+        r["rays"] += stats["rays_traced"]
+        r["seconds"].append(seconds)
+        r["counts"].append(counts["closest_hit"])
+        r["last"] = img
+    for p, (c_sh, c_bk) in enumerate(zip(inst_runs["shared"]["counts"], inst_runs["baked"]["counts"])):
+        if c_sh != n_inst * c_bk:
+            raise AssertionError(f"pass {p + 1}: the shared scene launched K1 {c_sh} times, "
+                                 f"the baked scene {c_bk} (host depths)")
+    energy = {k: float(r["film"].sum()) / FRAMES for k, r in inst_runs.items()}
+    for key, r in inst_runs.items():
+        total = sum(r["seconds"])
+        print(f"render_pass {WIDTH}x{HEIGHT} depth {DEPTH} wavefront_depths=0 {key}: {FRAMES} "
+              f"passes, {1e3 * total / FRAMES:.2f} ms/pass (median "
+              f"{1e3 * sorted(r['seconds'])[FRAMES // 2]:.2f}), rays_traced {r['rays']}, "
+              f"{r['rays'] / total:.4g} rays/s, energy {energy[key]:.6g}, K1 launches per pass "
+              f"{sum(r['counts']) / FRAMES}; {card_line}")
+    if abs(energy["shared"] - energy["baked"]) > 1e-3 * energy["baked"]:
+        raise AssertionError(f"shared energy {energy['shared']}, baked {energy['baked']}")
+    # primary hits, shared against baked: every ray whose object differs or
+    # whose t differs beyond (1e-4, 1e-4) must be fp-borderline (its baked
+    # hit moves under a 1e-5 nudge of the origin) or explained by the
+    # TRI_EPS cutoff, which Moller-Trumbore applies in object space on the
+    # shared scene and in world space on the baked one
+    # (tests/test_instancing.py::test_bench_scale_multi_mesh): the winner
+    # of one side has |det| under TRI_EPS in the other side's space
+    res_sh, res_bk = query.find_nearest(sh_scene, wo, wd), query.find_nearest(scene, wo, wd)
+    res_nudged = query.find_nearest(scene, (wo + wd * 1e-5).contiguous(), wd)
+    flip = (res_bk["obj_idx"] != res_nudged["obj_idx"]) | (res_bk["tri_idx"] != res_nudged["tri_idx"])
+    differ = (res_sh["obj_idx"] != res_bk["obj_idx"]) | ~torch.isclose(
+        res_sh["t"], res_bk["t"], atol=1e-4, rtol=1e-4)
+    rays = torch.nonzero(differ & ~flip).squeeze(1)
+    minv = sh_scene.shared.inst_minv.double()
+    mats = torch.linalg.inv(minv)
+
+    def det_of(rows, inst, to_world, dd):
+        """|det| of Moller-Trumbore for pool rows (v0, e1, e2) moved by the
+        instance matrices (to world space, or from world to object space)
+        along directions dd, float64."""
+        m = (mats if to_world else minv)[inst][:, :3, :3]
+        e1 = torch.einsum("rij,rj->ri", m, rows[:, 3:6].double())
+        e2 = torch.einsum("rij,rj->ri", m, rows[:, 6:9].double())
+        return (e1 * torch.cross(dd, e2, dim=-1)).sum(-1).abs()
+
+    d64 = wd[rays].double()
+    tri_sh, tri_bk = res_sh["tri_idx"][rays].long(), res_bk["tri_idx"][rays].long()
+    inst_sh = (res_sh["obj_idx"][rays] - 2).clamp(0, n_inst - 1).long()
+    inst_bk = (res_bk["obj_idx"][rays] - 2).clamp(0, n_inst - 1).long()
+    sliver_sh = (tri_sh >= 0) & (det_of(sh_scene.pool[tri_sh.clamp_min(0)], inst_sh, True, d64)
+                                 < constants.TRI_EPS)
+    d_obj = torch.einsum("rij,rj->ri", minv[inst_bk][:, :3, :3], d64)
+    sliver_bk = (tri_bk >= 0) & (det_of(scene.pool[tri_bk.clamp_min(0)], inst_bk, False, d_obj)
+                                 < constants.TRI_EPS)
+    unexplained = int((~(sliver_sh | sliver_bk)).sum())
+    print(f"shared against baked primary hits: {int(differ.sum())} of {wo.shape[0]} rays differ "
+          f"(object or t beyond 1e-4): fp-borderline {int((differ & flip).sum())}, the shared "
+          f"winner a world sliver {int(sliver_sh.sum())}, the baked winner an object-space "
+          f"sliver {int((sliver_bk & ~sliver_sh).sum())}, unexplained {unexplained}")
+    if unexplained:
+        raise AssertionError("shared and baked hits differ beyond the TRI_EPS cutoff")
+
+    def shared_vs_baked(label, img_sh, img_bk, rad_sh, rad_bk, rays):
+        """Pixels beyond tolerance that neither scene's nudge probe shows
+        fp-borderline: at most 1% of the frame, the image rule of
+        tests/test_instancing.py (a path may meet the TRI_EPS cutoff at
+        any depth)."""
+        cmp = borderline.unexplained_pixels(rad_sh, rays, img_sh.cpu(), img_bk.cpu())
+        left = cmp["unexplained"]
+        if left.numel():
+            idx = left.to(dev)
+            o_, d_, s_ = rays
+            near = borderline.nudge_sensitive(rad_bk, o_[idx], d_[idx],
+                                              None if s_ is None else s_[idx])
+            left = left[~near]
+        print(f"{label} shared against baked: pixels beyond tolerance {cmp['bad'].numel()}, "
+              f"on neither scene fp-borderline {left.numel()} of {img_sh.shape[0] * img_sh.shape[1]}")
+        if left.numel() > 0.01 * img_sh.shape[0] * img_sh.shape[1]:
+            raise AssertionError(f"{label}: shared and baked images differ")
+
+    shared_vs_baked(
+        "render_pass", inst_runs["shared"]["last"], inst_runs["baked"]["last"],
+        lambda oo, dd, ss: pathtracer.sample_radiance(sh_scene, oo, dd, ss, DEPTH, 0)[0],
+        lambda oo, dd, ss: pathtracer.sample_radiance(scene, oo, dd, ss, DEPTH, 0)[0],
+        pathtracer.camera_rays(camera, FRAMES, dev))
+    w_runs = {k: dict(seconds=[], counts=[]) for k in sh_configs}
+    for sc in sh_configs.values():
+        whitted.render(sc, camera, DEPTH, False)  # warm-up
+    for key in turns(list(sh_configs), FRAMES):
+        out, seconds, counts = drive(f"{key} whitted", lambda sc=sh_configs[key]: whitted.render(
+            sc, camera, DEPTH, False), ["closest_hit", "occluded"])
+        w_runs[key]["seconds"].append(seconds)
+        w_runs[key]["counts"].append((counts["closest_hit"], counts["occluded"]))
+        w_runs[key]["out"] = out
+    for key, r in w_runs.items():
+        total, out = sum(r["seconds"]), r["out"]
+        print(f"whitted {WIDTH}x{HEIGHT} depth {DEPTH} host route {key}: {FRAMES} frames, "
+              f"{1e3 * total / FRAMES:.2f} ms/frame (median "
+              f"{1e3 * sorted(r['seconds'])[FRAMES // 2]:.2f}), rays {out['rays']} in "
+              f"{out['levels']} levels, {out['rays'] * FRAMES / total:.4g} rays/s, energy "
+              f"{float(out['image'].sum()):.6g}, K1 launches per frame (closest, any) "
+              f"{r['counts'][-1]}; {card_line}")
+    w_sh, w_bk = w_runs["shared"]["out"], w_runs["baked"]["out"]
+    if w_runs["shared"]["counts"][-1] != (n_inst * w_sh["levels"],) * 2:
+        raise AssertionError(f"shared whitted launches {w_runs['shared']['counts'][-1]}")
+    shared_vs_baked(
+        "whitted", w_sh["image"], w_bk["image"],
+        lambda oo, dd, _: whitted.radiance(sh_scene, oo, dd, DEPTH, False)[0],
+        lambda oo, dd, _: whitted.radiance(scene, oo, dd, DEPTH, False)[0], (wo, wd, None))
+    instanced_launches = dict(
+        closest_hit=dict(per_pass=sum(inst_runs["shared"]["counts"]) / FRAMES,
+                         per_frame=w_runs["shared"]["counts"][-1][0]),
+        occluded=dict(per_pass=0, per_frame=w_runs["shared"]["counts"][-1][1]))
+
+    # (c) animation: the O(1) transform update against a full build
+    anim = AnimatedScene(XML, instancing="shared", device="cuda")
+    anim_scene, _ = anim.build()
+    anim.set_transform(1, position=(0.4, -0.2, 2.2), rotation_deg=(0, 60, 0))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    moved = anim.update(anim_scene)
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.perf_counter() - start)
+    start = time.perf_counter()
+    rebuilt, _ = anim.build()
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - start)
+    start = time.perf_counter()
+    compile_scene(XML, device="cuda")
+    torch.cuda.synchronize()
+    baked_ms = 1e3 * (time.perf_counter() - start)
+    a_hit, b_hit = query.find_nearest(moved, wo, wd), query.find_nearest(rebuilt, wo, wd)
+    for key in ("t", "obj_idx", "tri_idx", "slot"):
+        if not torch.equal(a_hit[key], b_hit[key]):
+            raise AssertionError(f"update against rebuild: {key} differs")
+    img_u = whitted.render(moved, camera, DEPTH)["image"].cpu()
+    img_r = whitted.render(rebuilt, camera, DEPTH)["image"].cpu()
+    beyond = int((~torch.isclose(img_u, img_r, atol=2e-5, rtol=1e-4)).sum())
+    shift = float((img_u - whitted.render(anim_scene, camera, DEPTH)["image"].cpu()).abs().max())
+    print(f"AnimatedScene: update after set_transform {update_ms:.3f} ms, full shared build() "
+          f"{build_ms:.1f} ms, baked compile_scene "
+          f"{baked_ms:.1f} ms; hits bit-equal to the rebuild's, Whitted values beyond the "
+          f"parity tolerance {beyond}, largest change from the unmoved frame {shift:.4g}; "
+          f"{card_line}")
+    if beyond or shift < 0.01 or moved.shared.meshes is not anim_scene.shared.meshes:
+        raise AssertionError("the transform update differs from a rebuild")
+
+    # (d) the primitive scene: full-size frames (no kernel), 64x40 against
+    # the CPU, noise2d against the CPU
+    for anim_time in (0.0, 1.0):
+        p_gpu = compile_primitive_scene(anim_time, device="cuda")
+        p_cpu = compile_primitive_scene(anim_time, device="cpu")
+        p_ms = {}
+        for label, fn in (
+                ("whitted", lambda: whitted.render(p_gpu, camera, DEPTH)),
+                ("render_pass", lambda: pathtracer.render_pass(p_gpu, camera, 1, DEPTH)),
+                ("albedo", lambda: basics.render(p_gpu, camera, "albedo")),
+                ("normal", lambda: basics.render(p_gpu, camera, "normal"))):
+            fn()  # warm-up
+            out, seconds, counts = drive(f"primitive {label}", fn, [])
+            if any(counts.values()):
+                raise AssertionError(f"primitive {label} launched {counts}")
+            img = out["image"] if label == "whitted" else out[0] if label == "render_pass" else out
+            if not bool(torch.isfinite(img).all()) or float(img.sum()) <= 0:
+                raise AssertionError(f"primitive {label}: bad frame")
+            p_ms[label] = 1e3 * seconds
+        pcmp = borderline.unexplained_pixels(
+            lambda oo, dd, ss: pathtracer.sample_radiance(p_cpu, oo, dd, ss, DEPTH)[0],
+            pathtracer.camera_rays(small, 1, "cpu"),
+            pathtracer.render_pass(p_gpu, small, 1, DEPTH)[0].cpu(),
+            pathtracer.render_pass(p_cpu, small, 1, DEPTH)[0])
+        wcmp = borderline.unexplained_pixels(
+            lambda oo, dd, _: whitted.radiance(p_cpu, oo, dd, DEPTH)[0], (so_, sd_, None),
+            whitted.render(p_gpu, small, DEPTH)["image"].cpu(),
+            whitted.render(p_cpu, small, DEPTH)["image"])
+        print(f"primitive scene t={anim_time} {WIDTH}x{HEIGHT} depth {DEPTH}: ms "
+              f"{ {k: round(v, 2) for k, v in p_ms.items()} }, no launch; 64x40 cuda vs cpu: "
+              f"path tracer beyond tolerance {pcmp['bad'].numel()} (not fp-borderline "
+              f"{pcmp['unexplained'].numel()}), whitted {wcmp['bad'].numel()} "
+              f"({wcmp['unexplained'].numel()}); {card_line}")
+        if pcmp["unexplained"].numel() or wcmp["unexplained"].numel():
+            raise AssertionError("the primitive scene on the card differs from the CPU")
+    nx = torch.linspace(-300.0, 300.0, 1 << 20)
+    ny = torch.flip(nx, (0,)) * 0.7
+    if not torch.equal(noise2d(nx.to(dev), ny.to(dev)).cpu().view(torch.int32),
+                       noise2d(nx, ny).view(torch.int32)):
+        raise AssertionError("noise2d on the card differs from the CPU")
+    print("noise2d: 1,048,576 values bit-equal on the card and the CPU")
+
+    # (e) the CLI with --instancing shared on the card
+    cli_dir = os.path.join(REPO, "build", "smoke_cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    for integrator in ("pathtracer", "whitted"):
+        rc, seconds, counts = drive(f"cli --instancing shared {integrator}", lambda i=integrator: cli.main([
+            "--scene-xml", XML, "--integrator", i, "--instancing", "shared", "--spp", "2",
+            "--width", "64", "--height", "40", "--device", "cuda",
+            "--cam-pos", ",".join(str(x) for x in CAMERA["pos"]),
+            "--cam-target", ",".join(str(x) for x in CAMERA["target"]),
+            "--out", os.path.join(cli_dir, "shared.png")]), ["closest_hit"])
+        if rc != 0 or decode_png(os.path.join(cli_dir, "shared.png")).shape != (40, 64, 3):
+            raise AssertionError(f"cli --instancing shared {integrator}: rc {rc}")
+        print(f"cli --instancing shared {integrator} 64x40: {1e3 * seconds:.1f} ms, launches "
+              f"{ {k: c for k, c in counts.items() if c} }")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    wavefront_pt=("wavefront_pt.cu", "ops/pallas/wavefront_pt.py:165"),
@@ -1605,6 +1887,7 @@ def main() -> int:
     entries += [dict(name=key, source=src, replaces=tpu, launches=probe_launches[key],
                      main=dict(per_pass=0, per_frame=0), result=r)
                 for key, src, tpu, r in probes]
+    print(f"chip_smoke: all phases in {time.perf_counter() - smoke_start:.1f} s; {card_line}")
     print(json.dumps({"kernels": [{
         "name": e["name"],
         "route": "cuda",
@@ -1615,6 +1898,7 @@ def main() -> int:
         "grad_launches": grad_launches.get(e["name"], dict(pathtracer=0, whitted=0)),
         "cli_launches": cli_launches.get(
             e["name"], dict(pathtracer_step=0, whitted_frame=0, basics_frame=0)),
+        "instanced_launches": instanced_launches.get(e["name"], dict(per_pass=0, per_frame=0)),
         "redesigned": redesigned.get(e["name"]),
         "max_abs_err": e["result"]["max_abs_err"],
         "ms": e["result"]["ms"],

@@ -25,7 +25,8 @@ None.  The build returns its `BuildStats` (the JAX package's
 accel/types.py:110-118).
 
 `thread_links` threads a tree or forest with per-octant hit and miss
-links for the link walk (`ops/link_walk.py`).
+links for the link walk (`ops/link_walk.py`); `refit_bvh` grows a built
+tree's bounds to moved triangles, its topology kept.
 
 The native C++ builder and the SBVH spatial-split build of the JAX package
 are not ported yet (ROADMAP).
@@ -205,6 +206,36 @@ def build_bvh(tri_v: np.ndarray, force_split_cap: int | None = FORCE_SPLIT_CAP,
         max_leaf=int(bvh.tri_count.max()),
     )
     return bvh, idx, stats
+
+
+def refit_bvh(host: HostBVH, tri_indices: np.ndarray, tri_v: np.ndarray) -> None:
+    """Bottom-up bounds refit after vertex motion, the topology unchanged
+    (BVH::Refit, infra/bvh.cpp:26-43), in place on `host`, as the JAX
+    package's `refit_bvh` (accel/bvh_builder.py:225-264 there): the leaves
+    by one segmented min/max over the leaf-partitioned triangle order, the
+    interior nodes in at most tree-height sweeps (children carry larger
+    indices than their parent).  Threaded links stay valid: they encode
+    topology, not bounds."""
+    m = host.nodes_used
+    if m == 0:
+        return
+    tmin = tri_v.min(axis=1)
+    tmax = tri_v.max(axis=1)
+    leaf = host.tri_count[:m] > 0
+    leaf_ids = np.nonzero(leaf)[0]
+    leaf_ids = leaf_ids[np.argsort(host.left_first[leaf_ids], kind="stable")]
+    starts = host.left_first[leaf_ids]
+    host.node_min[leaf_ids] = np.minimum.reduceat(tmin[tri_indices], starts, axis=0)
+    host.node_max[leaf_ids] = np.maximum.reduceat(tmax[tri_indices], starts, axis=0)
+    li, ri = host.left[:m], host.right[:m]
+    done = leaf.copy()
+    while not done.all():
+        ids = np.nonzero(~done & done[li] & done[ri])[0]
+        if ids.size == 0:
+            raise RuntimeError("refit_bvh: malformed topology (no node is ready)")
+        host.node_min[ids] = np.minimum(host.node_min[li[ids]], host.node_min[ri[ids]])
+        host.node_max[ids] = np.maximum(host.node_max[li[ids]], host.node_max[ri[ids]])
+        done[ids] = True
 
 
 def thread_links(left, right, tri_count, axis, roots=None) -> tuple[np.ndarray, np.ndarray]:

@@ -57,6 +57,29 @@ def make_camera(width: int, height: int, pos=(0.0, 0.0, -2.0), target=(0.0, 0.0,
     )
 
 
+def handle_input(cam: Camera, dt_ms: float, move=(0.0, 0.0, 0.0), turn=(0.0, 0.0),
+                 move_speed: float = 5.0, turn_speed: float = 5.0) -> Camera:
+    """Scripted Camera::HandleInput (camera.h:31-60), as the JAX package's
+    `handle_input` (core/camera.py:70-97 there): `move` = (right, up,
+    ahead) in {-1, 0, 1} (D/A, R/F, W/S), `turn` = (yaw, pitch) in
+    {-1, 0, 1} (the arrow keys); the reference's speeds and its
+    0.00025 * dt scaling.  Returns a new camera of the same size."""
+    m_speed = np.float32(0.00025) * dt_ms * move_speed
+    t_speed = np.float32(0.00025) * dt_ms * turn_speed
+    pos = np.asarray(cam.pos, np.float32)
+    target = np.asarray(cam.target, np.float32)
+    ahead = target - pos
+    ahead /= np.linalg.norm(ahead)
+    right = np.cross(np.array([0, 1, 0], np.float32), ahead)
+    right /= np.linalg.norm(right)
+    up = np.cross(ahead, right)
+    up /= np.linalg.norm(up)
+    pos = pos + m_speed * 2 * (move[0] * right + move[2] * ahead + move[1] * up)
+    target = pos + ahead
+    target = target + t_speed * (-turn[1] * up - turn[0] * right)
+    return make_camera(cam.width, cam.height, tuple(pos), tuple(target))
+
+
 def primary_rays(cam: Camera, xs: torch.Tensor, ys: torch.Tensor):
     """Rays (o, d) [N, 3] through continuous pixel coordinates (xs, ys) [N]
     (camera.h:23-30): P = topLeft + u*(topRight-topLeft) +

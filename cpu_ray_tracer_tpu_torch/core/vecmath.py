@@ -71,3 +71,21 @@ def mat_inverted_no_scale(m: np.ndarray) -> np.ndarray:
     r[:3, :3] = m[:3, :3].T
     r[:3, 3] = -(m[:3, :3].T @ m[:3, 3])
     return r
+
+
+def transform_vector(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The linear part of a row-major matrix `m` [4, 4] applied to vectors
+    v [..., 3]: column by column, as the JAX package's `transform_vector`
+    (template/tmplmath.h TransformVector)."""
+    rot = m[:3, :3]
+    return rot[:, 0] * v[..., 0:1] + rot[:, 1] * v[..., 1:2] + rot[:, 2] * v[..., 2:3]
+
+
+def transform_position(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """`transform_vector` plus m's translation (TransformPosition)."""
+    return transform_vector(p, m) + m[:3, 3]
+
+
+def mat_inverted(m: np.ndarray) -> np.ndarray:
+    """The full inverse of a 4x4 matrix, float32."""
+    return np.linalg.inv(m).astype(np.float32)

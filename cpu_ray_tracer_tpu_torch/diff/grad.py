@@ -70,8 +70,9 @@ def apply_params(scene, params: dict):
     if any(k in params for k in _POOL):
         out._buffers["pool"] = torch.cat(
             [params[k] if k in params else _source(scene, k) for k in _POOL], dim=1)
-    with torch.no_grad():
-        out._buffers["kernel_params"] = surface.kernel_params(out)
+    if "kernel_params" in scene._buffers:  # a PrimScene runs no fused kernel
+        with torch.no_grad():
+            out._buffers["kernel_params"] = surface.kernel_params(out)
     return out
 
 

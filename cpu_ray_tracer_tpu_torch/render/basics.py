@@ -42,7 +42,8 @@ def aov_of_rays(scene, o: torch.Tensor, d: torch.Tensor, aov: str = "albedo") ->
         point = o + res["t"][:, None] * d
         normal, uv, mat_id = query.get_hit_info(scene, res, point, d)
     if aov == "albedo":
-        albedo = query.get_albedo(scene, query.material_fields(scene, mat_id), uv)
+        albedo = query.get_albedo(scene, query.material_fields(scene, mat_id), uv,
+                                  res["obj_idx"], point)
         img = torch.where(hit, albedo, _ZERO)
     elif aov == "normal":
         img = torch.where(hit, (normal + 1.0) * 0.5, _ZERO)

@@ -31,8 +31,9 @@ binary BVH's stack or link tables and reads materials from the meta word,
 so it serves only such scenes (`DeviceScene.stack_kernels`, the JAX
 package's `_kernel_scene_eligible`, render/pathtracer.py:473-500):
 `wavefront_depths=None` takes `WAVEFRONT_DEPTHS` there and the host bounce
-elsewhere (grid, KD tree, a wide-only BVH, hit ids past the meta word); an
-explicit k > 0 on such a scene raises.
+elsewhere (grid, KD tree, a wide-only BVH, hit ids past the meta word, a
+shared-instancing scene, the primitive scene); an explicit k > 0 on such
+a scene raises.
 
 The ray state of the host bounce stays in pixel order.  At each depth the
 live rays are gathered, ordered by (direction octant, previous hit: the
@@ -120,7 +121,7 @@ def bounce_step(scene, s: dict, depth: int, depth_limit: int, perm=None,
     point = s["o"] + t[:, None] * s["d"]
     normal, uv, mat_id = query.get_hit_info(scene, res, point, s["d"])
     mf = query.material_fields(scene, mat_id)
-    albedo = query.get_albedo(scene, mf, uv)
+    albedo = query.get_albedo(scene, mf, uv, res["obj_idx"], point)
     is_light = mf["is_light"] & hit
     lit = s["lit"] | is_light
     surf = hit & ~is_light

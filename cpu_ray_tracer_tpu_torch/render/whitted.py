@@ -28,7 +28,8 @@ The level kernel walks the binary stack tables, so it serves only scenes
 that have them (`DeviceScene.stack_kernels`, the JAX package's
 `_use_kernel_level0`, render/whitted.py:125-138): `level_kernel=None`
 takes it there and the host route elsewhere (grid, KD tree, a wide-only
-BVH); an explicit `level_kernel=True` on such a scene raises.
+BVH, a shared-instancing scene, the primitive scene); an explicit
+`level_kernel=True` on such a scene raises.
 
 The film adds later levels with `index_add_` at the children's pixels; on
 the card that sum is atomic and its order varies from run to run.
@@ -94,7 +95,7 @@ def _level_host(scene, o, d, inside, perm=None, differentiable: bool = False) ->
     is_diel = surf & ~(mf["reflectivity"] > 0.0) & (mf["refractivity"] > 0.0)
     return dict(
         t=res["t"], point=point, miss=~hit, lit=is_light, surf=surf, fields=mf,
-        albedo=query.get_albedo(scene, mf, uv),
+        albedo=query.get_albedo(scene, mf, uv, res["obj_idx"], point),
         irradiance=common.direct_illumination(scene, point, normal, active=diffuse, perm=perm),
         fr=fr, r_dir=r_dir, t_dir=t_dir, emit2=is_diel & can,
         traversed=res["traversed"], tested=res["tested"],

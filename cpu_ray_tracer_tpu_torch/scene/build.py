@@ -1,8 +1,8 @@
 """Host-side scene compiler: XML spec -> DeviceScene.
 
-The port of the JAX package's `cpu_ray_tracer_tpu/scene/build.py` with
-`instancing="baked"`, in its two layouts, the reference's two XML scene
-classes:
+The port of the JAX package's `cpu_ray_tracer_tpu/scene/build.py`.  With
+`instancing="baked"` (the default) it has two layouts, the reference's two
+XML scene classes:
 
 * `layout="tlas"`: TLASFileScene (infra/scene/tlas_file_scene.cpp), one
   tree per object (its scale baked into the vertices, then its rigid
@@ -27,7 +27,14 @@ The three accelerators are interchangeable and give the same hits:
   trees and merged into one forest walked by hit/miss links
   (scene/build.py:281-333 there).
 
-`force_split_cap` and the BVH leaf size are the builder's
+`instancing="shared"` (TLAS layout, BVH only) keeps one object-space BVH
+per unique mesh and a table of instance transforms instead
+(`_build_shared_instances`, scene/build.py:465-598 there): the
+reference's BLASBVH with its O(1) SetTransform (`scene/types.py`
+SharedInstances, `scene/animate.py`); queries move the rays into each
+instance's object space (`scene/query.py`).
+
+`force_split_cap` and the BVH leaf size (`leaf_target`) are the builder's
 (`accel/bvh_builder.py`); `parity=True` sets both to the reference's
 (None, leaves of 2), as the JAX package's parity route does.  Node
 numbering, builds and the leaf triangle order are the JAX package's, so
@@ -49,7 +56,7 @@ from cpu_ray_tracer_tpu_torch.core.textures import build_atlas
 from cpu_ray_tracer_tpu_torch.io.image import load_texture_image
 from cpu_ray_tracer_tpu_torch.io.obj import load_obj
 from cpu_ray_tracer_tpu_torch.io.scene_xml import load_scene_xml, resolve_asset
-from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, SceneInfo
+from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, SceneInfo, SharedInstances
 
 DEG2RAD = np.float32(np.pi / 180.0)
 LIGHT_SIZE = 0.5  # half-extent of the light's Quad(0, 1) (tlas_file_scene.cpp:15-19)
@@ -66,34 +73,44 @@ def _object_matrix(obj) -> np.ndarray:
 
 
 def compile_scene(
-    xml_path: str, layout: str = "tlas", accel: str = "bvh", instancing: str = "baked",
-    parity: bool = False, force_split_cap: int | None = bvh_builder.FORCE_SPLIT_CAP,
-    shadow_quirk: bool = True, wide: bool | str = False, bilinear: bool = False,
-    device=device_mod.DEFAULT,
+    xml_path: str | None = None, spec=None, layout: str = "tlas", accel: str = "bvh",
+    instancing: str = "baked", parity: bool = False,
+    force_split_cap: int | None = bvh_builder.FORCE_SPLIT_CAP, shadow_quirk: bool = True,
+    wide: bool | str = False, bilinear: bool = False,
+    leaf_target: int | None = bvh_builder.LEAF_TARGET, device=device_mod.DEFAULT,
 ) -> tuple[DeviceScene, SceneInfo]:
-    """Compile an XML scene to a DeviceScene on `device` (the card unless
-    the caller asks for another; without a CUDA device the default
-    raises).  `layout` "tlas" or "mono"; `accel` "bvh", "grid" or
-    "kdtree"; `wide` False, True or "bounce" for "bvh" (module docstring);
-    `parity` the reference's normals and BVH stops; `force_split_cap` the
-    BVH builder's (None: the reference's SAH stop); `shadow_quirk` as the
-    JAX package's; `bilinear` picks the bilinear texture tap, which carries
+    """Compile an XML scene, or a parsed `spec` (`io/scene_xml.SceneSpec`,
+    which `scene/animate.AnimatedScene` edits), to a DeviceScene on
+    `device` (the card unless the caller asks for another; without a CUDA
+    device the default raises).  `layout` "tlas" or "mono"; `accel` "bvh",
+    "grid" or "kdtree"; `instancing` "baked" or "shared" (TLAS layout and
+    BVH only, not wide; module docstring); `wide` False, True or "bounce"
+    for "bvh"; `parity` the reference's normals and BVH stops;
+    `force_split_cap` and `leaf_target` the BVH builder's (None: the
+    reference's SAH stop and leaves of 2); `shadow_quirk` as the JAX
+    package's; `bilinear` picks the bilinear texture tap, which carries
     texel gradients and keeps the scene off the wavefront and Whitted
     level kernels (`DeviceScene` doc)."""
     dev = device_mod.resolve(device)
     if layout not in ("tlas", "mono"):
         raise ValueError(f"layout={layout!r}: expected 'tlas' or 'mono'")
-    if instancing != "baked":
-        raise NotImplementedError("instancing='shared' is not ported yet (ROADMAP queue 1, item 13)")
+    if instancing not in ("baked", "shared"):
+        raise ValueError(f"instancing={instancing!r}: expected 'baked' or 'shared'")
     if accel not in ("bvh", "grid", "kdtree"):
         raise ValueError(f"accel={accel!r}: expected 'bvh', 'grid' or 'kdtree'")
     if wide not in (False, True, "bounce") or (wide and accel != "bvh"):
         raise ValueError(f"wide={wide!r} with accel={accel!r}: wide is False, True or "
                          "'bounce', and only for accel='bvh'")
-    leaf_target = bvh_builder.LEAF_TARGET
+    if instancing == "shared" and (layout != "tlas" or accel != "bvh" or wide):
+        # the JAX package's refusal (scene/build.py:160-164 there); it has
+        # no wide shared tables either
+        raise ValueError("instancing='shared' requires layout='tlas' and accel='bvh', "
+                         f"and no wide tables (got layout={layout!r}, accel={accel!r}, "
+                         f"wide={wide!r})")
     if parity:
         force_split_cap = leaf_target = None
-    spec = load_scene_xml(xml_path)
+    if spec is None:
+        spec = load_scene_xml(xml_path)
     xml_dir = spec.xml_dir
 
     # ---- textures ----------------------------------------------------
@@ -122,23 +139,26 @@ def compile_scene(
         )
     rows.append({"albedo": (255 / 255.0, 192 / 255.0, 203 / 255.0)})  # error pink
     materials = make_table(rows)
+    light_t = vm.mat_translate(tuple(spec.light_pos))
+    lights = dict(
+        materials=materials, atlas=atlas, light_t=light_t,
+        light_inv_t=vm.mat_inverted_no_scale(light_t), light_size=LIGHT_SIZE,
+        light_color=constants.LIGHT_COLOR, floor_inv_to=100.0 / floor_tex_width,
+        skydome_tex=skydome_tex, shadow_quirk=shadow_quirk, bilinear=bilinear,
+    )
+    if instancing == "shared":
+        pool, shared, info = _build_shared_instances(spec, force_split_cap, leaf_target)
+        return DeviceScene(packed=None, pool=pool, shared=shared, **lights).to(dev), info
 
     inst_v, inst_n, inst_uv, inst_obj, inst_mat = _instances(spec, layout, parity)
     all_v = np.concatenate(inst_v, axis=0)
     all_n = np.concatenate(inst_n, axis=0)
     all_uv = np.concatenate(inst_uv, axis=0)
 
-    # shading records: degenerate vertex normals filled with geometric ones
     v0 = all_v[:, 0]
     e1 = all_v[:, 1] - v0
     e2 = all_v[:, 2] - v0
-    gn = np.cross(e1, e2)
-    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
-    bad = np.linalg.norm(all_n, axis=-1) < 1e-8
-    all_n = np.where(bad[..., None], gn[:, None, :], all_n)
-    shade16 = np.zeros((all_v.shape[0], 16), np.float32)
-    shade16[:, 0:9] = all_n.reshape(-1, 9)
-    shade16[:, 9:15] = all_uv.reshape(-1, 6)
+    shade16 = shading_records(all_v, all_n, all_uv)
 
     ids = dict(obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat))
     wide_pack = None
@@ -166,22 +186,12 @@ def compile_scene(
         # mono: the one tree's build; tlas: no BVH over the instances
         build_stats = blas_stats.pop() if layout == "mono" else bvh_builder.BuildStats()
 
-    light_t = vm.mat_translate(tuple(spec.light_pos))
     scene = DeviceScene(
         packed=packed,
         pool=np.concatenate([v0, e1, e2], axis=1),
-        materials=materials,
-        atlas=atlas,
-        light_t=light_t,
-        light_inv_t=vm.mat_inverted_no_scale(light_t),
-        light_size=LIGHT_SIZE,
-        light_color=constants.LIGHT_COLOR,
-        floor_inv_to=100.0 / floor_tex_width,
-        skydome_tex=skydome_tex,
-        shadow_quirk=shadow_quirk,
         wide=wide_pack,
         wide_bounce=wide == "bounce",
-        bilinear=bilinear,
+        **lights,
     )
     info = SceneInfo(
         name=spec.name,
@@ -193,6 +203,102 @@ def compile_scene(
         blas_stats=blas_stats,
     )
     return scene.to(dev), info
+
+
+def shading_records(tri_v: np.ndarray, tri_n: np.ndarray, tri_uv: np.ndarray) -> np.ndarray:
+    """float32 [N, 16]: n0 n1 n2 uv0 uv1 uv2 per triangle, lane 15 zero,
+    with vertex normals of length under 1e-8 replaced by the geometric
+    normal (the JAX package's `make_triangle_pool`)."""
+    v0 = tri_v[:, 0]
+    gn = np.cross(tri_v[:, 1] - v0, tri_v[:, 2] - v0)
+    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+    bad = np.linalg.norm(tri_n, axis=-1) < 1e-8
+    tri_n = np.where(bad[..., None], gn[:, None, :], tri_n)
+    shade16 = np.zeros((tri_v.shape[0], 16), np.float32)
+    shade16[:, 0:9] = tri_n.reshape(-1, 9)
+    shade16[:, 9:15] = tri_uv.reshape(-1, 6)
+    return shade16
+
+
+def instance_matrices(obj) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The object's full TRS matrix, its inverse and the normal matrix
+    (the inverse-transpose of the linear part), float32: the shared
+    instancing's O(1) SetTransform (blas_bvh.cpp:363-374; the JAX
+    package's scene/build.py:465-474)."""
+    m = (_object_matrix(obj) @ vm.mat_scale(tuple(obj.scale))).astype(np.float32)
+    minv = np.linalg.inv(m).astype(np.float32)
+    nrm = np.linalg.inv(m[:3, :3]).T.astype(np.float32)
+    return m, minv, nrm
+
+
+def transform_aabb(bmin, bmax, m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The world box of a box moved by `m`, over its 8 corners, as
+    BLASBVH::SetTransform (blas_bvh.cpp:363-374; the JAX package's
+    `_transform_aabb`, scene/build.py:56-69)."""
+    corners = np.array([[bmin[0] if not i & 1 else bmax[0], bmin[1] if not i & 2 else bmax[1],
+                         bmin[2] if not i & 4 else bmax[2]] for i in range(8)], np.float32)
+    world = corners @ m[:3, :3].T + m[:3, 3]
+    return world.min(axis=0), world.max(axis=0)
+
+
+def instance_tables(spec, inst_mesh, mesh_bounds) -> dict:
+    """The transform tables of `SharedInstances` for the objects of `spec`:
+    inverse TRS, normal matrix and world box per instance."""
+    n = len(spec.objects)
+    out = dict(inst_minv=np.zeros((n, 4, 4), np.float32), inst_nrm=np.zeros((n, 3, 3), np.float32),
+               inst_aabb_min=np.zeros((n, 3), np.float32),
+               inst_aabb_max=np.zeros((n, 3), np.float32))
+    for i, obj in enumerate(spec.objects):
+        m, out["inst_minv"][i], out["inst_nrm"][i] = instance_matrices(obj)
+        bmin, bmax = mesh_bounds[inst_mesh[i]]
+        out["inst_aabb_min"][i], out["inst_aabb_max"][i] = transform_aabb(
+            np.asarray(bmin, np.float32), np.asarray(bmax, np.float32), m)
+    return out
+
+
+def _build_shared_instances(spec, force_split_cap, leaf_target):
+    """One object-space BVH per unique mesh (by model path, in order of
+    first use) and the instance tables, as the JAX package's
+    `_build_shared_instances` (scene/build.py:477-598).  The pool holds
+    each unique mesh once; each mesh's tables carry pool-global triangle
+    ids in their meta words, and a placeholder object (the mesh's index)
+    and material 0 that the query replaces by the instance's.  Returns
+    (pool [N, 9], SharedInstances, SceneInfo counting every instance's
+    triangles)."""
+    mesh_of = {}
+    inst_mesh = [mesh_of.setdefault(obj.model_location, len(mesh_of)) for obj in spec.objects]
+    meshes = [load_obj(resolve_asset(loc, spec.xml_dir)).triangles() for loc in mesh_of]
+    all_v = np.concatenate([v for v, _, _ in meshes]).astype(np.float32)
+    shade16 = shading_records(all_v, np.concatenate([n for _, n, _ in meshes]).astype(np.float32),
+                              np.concatenate([uv for _, _, uv in meshes]).astype(np.float32))
+    pool_obj = np.concatenate([np.full(v.shape[0], s, np.int32) for s, (v, _, _) in enumerate(meshes)])
+    pool_mat = np.zeros(all_v.shape[0], np.int32)
+    packs, stats, bounds, tri_base = [], [], [], 0
+    for v, _, _ in meshes:
+        host, idx, st = bvh_builder.build_bvh(v.astype(np.float32), force_split_cap, leaf_target)
+        packs.append(pack.pack_bvh(
+            host.node_min, host.node_max, host.left, host.right, host.axis, host.left_first,
+            host.tri_count, idx + tri_base, all_v, shade16, pool_obj, pool_mat, root=0))
+        stats.append(st)
+        bounds.append((tuple(float(x) for x in host.node_min[0]),
+                       tuple(float(x) for x in host.node_max[0])))
+        tri_base += v.shape[0]
+    shared = SharedInstances(
+        packs, **instance_tables(spec, inst_mesh, bounds),
+        inst_obj=2 + np.arange(len(spec.objects), dtype=np.int32),
+        inst_mat=np.array([2 + obj.material_idx for obj in spec.objects], np.int32),
+        inst_mesh=inst_mesh, mesh_bounds=bounds)
+    v0 = all_v[:, 0]
+    info = SceneInfo(
+        name=spec.name,
+        triangle_count=sum(meshes[s][0].shape[0] for s in inst_mesh),
+        object_count=len(spec.objects),
+        num_nodes=sum(p.nodes.shape[0] for p in packs),
+        tree_depth=max(p.depth for p in packs),
+        build_stats=stats[0],
+        blas_stats=stats[1:],
+    )
+    return np.concatenate([v0, all_v[:, 1] - v0, all_v[:, 2] - v0], axis=1), shared, info
 
 
 def _instances(spec, layout: str = "tlas", parity: bool = False):

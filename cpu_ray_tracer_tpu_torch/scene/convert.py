@@ -28,6 +28,25 @@ True) and `bilinear` (default False: the scene's texture tap,
 is threaded with links here (`pack.make_tables`), as the JAX package
 walks it by its links.
 
+A shared-instancing scene (`instancing="shared"`) carries, in place of
+the `packed.*` keys:
+
+* `shared.inst_minv` [I, 4, 4], `shared.inst_nrm` [I, 3, 3],
+  `shared.inst_aabb_min`, `shared.inst_aabb_max` [I, 3],
+  `shared.inst_obj`, `shared.inst_mat` [I];
+* per unique mesh s, `shared.packs.{s}.node_aabb`, `.node_meta2`,
+  `.node_nearfar` (absent when its root is a leaf), `.tri_rows` and
+  `.slot_tri` (the JAX package packs no shading rows for them);
+* `tris.shade` [N, 16] (the pool's shading records), `tris.obj_id` and
+  `tris.mat_id` (the pool's placeholder ids, which the meta words keep);
+
+and `meta` holds `inst_mesh`, `mesh_bounds` and per mesh its
+`stack_depth` in `mesh_depths`.
+
+`prim_scene_from_arrays` carries a JAX `PrimScene`: its geometry fields
+under their own names (`light_t`, `sphere_pos`, `cube_m`, `plane_n`,
+`torus_inv_t`, ...) and the atlas under `atlas.*`.
+
 `params_from_arrays` carries the JAX package's differentiable parameters
 the same way: the dict of its `diff.grad.extract_params`, converted to
 numpy, with any of the keys of `diff/grad.PARAM_KEYS` (`albedo` [M, 3],
@@ -45,18 +64,82 @@ import torch
 from cpu_ray_tracer_tpu_torch.accel import pack
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
-from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene
+from cpu_ray_tracer_tpu_torch.scene import primitive_scene
+from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, SharedInstances
 
 _SLOTS_PER_ROW = 8  # the JAX packing's triangles per 128-lane row
 _SLOT_F = 16  # floats per triangle record
 
 
+def _packed_from_rows(a: dict, prefix: str, real: np.ndarray, shade_slots: np.ndarray,
+                      root: int, stack_depth: int, slot_ids=None) -> pack.PackedBVH:
+    """The port's tables of one JAX `PackedBVH` (its arrays under
+    `prefix`): `real` marks the row slots that hold a triangle, whose
+    shading records are `shade_slots` in slot order."""
+    aabb = np.asarray(a[f"{prefix}node_aabb"], np.float32)
+    m = aabb.shape[1]
+    row_start, nrows = np.asarray(a[f"{prefix}node_meta2"], np.int64)
+    rows = np.asarray(a[f"{prefix}tri_rows"], np.float32).reshape(-1, _SLOT_F)
+    prefix_sum = np.concatenate([[0], np.cumsum(real)])
+    leaf = nrows > 0
+    first = np.where(leaf, prefix_sum[row_start * _SLOTS_PER_ROW], 0)
+    count = np.where(leaf, prefix_sum[(row_start + nrows) * _SLOTS_PER_ROW] - first, 0)
+    nearfar = a.get(f"{prefix}node_nearfar")
+    depth = int(stack_depth)
+    if nearfar is None:
+        # the JAX packer attaches no near/far table when the root is a leaf,
+        # which makes the root the only node
+        if m != 1:
+            raise ValueError("node_nearfar missing for a multi-node tree")
+        nearfar = np.full((8, 2, 1), -1, np.int32)
+        depth = 1
+    return pack.make_tables(
+        aabb[:3].T, aabb[3:].T, first, count, np.asarray(nearfar, np.int32),
+        rows[real, :9], shade_slots, root=int(root), depth=depth, slot_ids=slot_ids,
+    )
+
+
+def _common(a: dict, meta: dict) -> dict:
+    """The materials, atlas, light and floor arguments of `DeviceScene`."""
+    return dict(
+        materials=MaterialTable(
+            albedo=a["materials.albedo"],
+            reflectivity=a["materials.reflectivity"],
+            refractivity=a["materials.refractivity"],
+            absorption=a["materials.absorption"],
+            tex_id=np.asarray(a["materials.tex_id"], np.int32),
+            is_light=np.asarray(a["materials.is_light"], np.bool_),
+        ),
+        atlas=_atlas(a),
+        light_t=a["light_t"],
+        light_inv_t=a["light_inv_t"],
+        light_size=float(a["light_size"]),
+        light_color=a["light_color"],
+        floor_inv_to=float(a["floor_inv_to"]),
+        skydome_tex=int(meta["skydome_tex"]),
+        shadow_quirk=bool(meta.get("shadow_quirk", True)),
+        bilinear=bool(meta.get("bilinear", False)),
+    )
+
+
+def _atlas(a: dict) -> Atlas:
+    return Atlas(
+        texels=a["atlas.texels"],
+        packed=np.asarray(a["atlas.packed"], np.int64).astype(np.int32),
+        offset=np.asarray(a["atlas.offset"], np.int32),
+        width=np.asarray(a["atlas.width"], np.int32),
+        height=np.asarray(a["atlas.height"], np.int32),
+    )
+
+
+def _pool(a: dict) -> np.ndarray:
+    return np.concatenate([a["tris.v0"], a["tris.e1"], a["tris.e2"]], axis=1)
+
+
 def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
     a = arrays
-    aabb = np.asarray(a["packed.node_aabb"], np.float32)
-    m = aabb.shape[1]
-    row_start, nrows = np.asarray(a["packed.node_meta2"], np.int64)
-    rows = np.asarray(a["packed.tri_rows"], np.float32).reshape(-1, _SLOT_F)
+    if "shared.inst_minv" in a:
+        return _shared_scene(a, meta)
     shade_rows = np.asarray(a["packed.tri_shade_rows"], np.float32).reshape(-1, _SLOT_F)
     # a real triangle's lane 15 is its meta word, whose obj >= 2 sets bits
     # 20-25, or its material id >= 2 as a float; padding slots are all-zero
@@ -67,54 +150,38 @@ def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
         slot_ids = pack.slot_id_table(
             np.asarray(a["packed.slot_tri"], np.int64)[real],
             np.asarray(a["tris.obj_id"]), np.asarray(a["tris.mat_id"]))
-    prefix = np.concatenate([[0], np.cumsum(real)])
-    leaf = nrows > 0
-    first = np.where(leaf, prefix[row_start * _SLOTS_PER_ROW], 0)
-    count = np.where(leaf, prefix[(row_start + nrows) * _SLOTS_PER_ROW] - first, 0)
+    packed = _packed_from_rows(a, "packed.", real, shade_rows[real], meta["root"],
+                               meta["stack_depth"], slot_ids)
+    return DeviceScene(packed=packed, pool=_pool(a), **_common(a, meta))
 
-    nearfar = a.get("packed.node_nearfar")
-    depth = int(meta["stack_depth"])
-    if nearfar is None:
-        # the JAX packer attaches no near/far table when the root is a leaf,
-        # which makes the root the only node
-        if m != 1:
-            raise ValueError("node_nearfar missing for a multi-node tree")
-        nearfar = np.full((8, 2, 1), -1, np.int32)
-        depth = 1
-    packed = pack.make_tables(
-        aabb[:3].T, aabb[3:].T, first, count, np.asarray(nearfar, np.int32),
-        rows[real, :9], shade_rows[real], root=int(meta["root"]), depth=depth,
-        slot_ids=slot_ids,
-    )
-    materials = MaterialTable(
-        albedo=a["materials.albedo"],
-        reflectivity=a["materials.reflectivity"],
-        refractivity=a["materials.refractivity"],
-        absorption=a["materials.absorption"],
-        tex_id=np.asarray(a["materials.tex_id"], np.int32),
-        is_light=np.asarray(a["materials.is_light"], np.bool_),
-    )
-    atlas = Atlas(
-        texels=a["atlas.texels"],
-        packed=np.asarray(a["atlas.packed"], np.int64).astype(np.int32),
-        offset=np.asarray(a["atlas.offset"], np.int32),
-        width=np.asarray(a["atlas.width"], np.int32),
-        height=np.asarray(a["atlas.height"], np.int32),
-    )
-    return DeviceScene(
-        packed=packed,
-        pool=np.concatenate([a["tris.v0"], a["tris.e1"], a["tris.e2"]], axis=1),
-        materials=materials,
-        atlas=atlas,
-        light_t=a["light_t"],
-        light_inv_t=a["light_inv_t"],
-        light_size=float(a["light_size"]),
-        light_color=a["light_color"],
-        floor_inv_to=float(a["floor_inv_to"]),
-        skydome_tex=int(meta["skydome_tex"]),
-        shadow_quirk=bool(meta.get("shadow_quirk", True)),
-        bilinear=bool(meta.get("bilinear", False)),
-    )
+
+def _shared_scene(a: dict, meta: dict) -> DeviceScene:
+    """A shared-instancing scene (module docstring): each mesh's pack with
+    the pool's shading records and meta words (pool-global triangle id,
+    the placeholder object and material) in slot order."""
+    obj_id, mat_id = np.asarray(a["tris.obj_id"]), np.asarray(a["tris.mat_id"])
+    shade = np.asarray(a["tris.shade"], np.float32).copy()
+    shade.view(np.int32)[:, 15] = pack.meta_words(obj_id, mat_id)
+    packs = []
+    for s, depth in enumerate(meta["mesh_depths"]):
+        slot_tri = np.asarray(a[f"shared.packs.{s}.slot_tri"], np.int64)
+        real = slot_tri >= 0
+        packs.append(_packed_from_rows(a, f"shared.packs.{s}.", real, shade[slot_tri[real]], 0,
+                                       depth))
+    shared = SharedInstances(
+        packs, **{k: a[f"shared.{k}"] for k in ("inst_minv", "inst_nrm", "inst_aabb_min",
+                                                "inst_aabb_max")},
+        inst_obj=np.asarray(a["shared.inst_obj"], np.int32),
+        inst_mat=np.asarray(a["shared.inst_mat"], np.int32),
+        inst_mesh=meta["inst_mesh"], mesh_bounds=meta["mesh_bounds"])
+    return DeviceScene(packed=None, pool=_pool(a), shared=shared, **_common(a, meta))
+
+
+def prim_scene_from_arrays(arrays: dict) -> primitive_scene.PrimScene:
+    """The port's `PrimScene` of a JAX `PrimScene`'s arrays (module
+    docstring), on the CPU."""
+    names = primitive_scene.scene_arrays().keys()
+    return primitive_scene.PrimScene({k: arrays[k] for k in names}, _atlas(arrays))
 
 
 def params_from_arrays(np_params: dict) -> dict:

@@ -1,13 +1,18 @@
 """Scene queries over ray batches, as the JAX package's
-`cpu_ray_tracer_tpu/scene/query.py:90-470` for the TLAS-baked scenes:
-FindNearest and its differentiable form, IsOccluded, GetHitInfo, the
-material fields, GetAlbedo, the sky and GetLightPos (the reference's
-BaseScene virtuals, infra/scene/base_scene.h:16-32).  The triangle
-queries go to the kernel of the scene's walk (`DeviceScene.walk`): the
-binary stack walk, the link walk of the grid and KD cell forests, or the
-wide walk.  The kernels take detached rays: visibility carries no
-gradient, and `find_nearest_diff` recomputes the winner's t and
-barycentrics with autograd.
+`cpu_ray_tracer_tpu/scene/query.py`: FindNearest and its differentiable
+form, IsOccluded, GetHitInfo, the material fields, GetAlbedo, the sky and
+GetLightPos (the reference's BaseScene virtuals,
+infra/scene/base_scene.h:16-32).  The triangle queries go to the kernel
+of the scene's walk (`DeviceScene.walk`): the binary stack walk, the link
+walk of the grid and KD cell forests, or the wide walk; on a
+shared-instancing scene ("instanced") one masked pass of the stack walk
+(or of the link walk, for a mesh deeper than its stack) per instance, in
+the instance's object space (`_instanced`, scene/query.py:24-87 there).
+The kernels take detached rays: visibility carries no gradient, and
+`find_nearest_diff` recomputes the winner's t and barycentrics with
+autograd.  The reference's analytic primitive scene
+(`scene/primitive_scene.py`, a `PrimScene`) answers every query with its
+own closed forms.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ from cpu_ray_tracer_tpu_torch.ops import intersect
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit, occluded
 from cpu_ray_tracer_tpu_torch.ops.link_walk import closest_hit_links, occluded_links
 from cpu_ray_tracer_tpu_torch.ops.wide_bvh import closest_hit_wide, occluded_wide
+from cpu_ray_tracer_tpu_torch.scene import primitive_scene as prim
+from cpu_ray_tracer_tpu_torch.scene.primitive_scene import PrimScene
+
+_TINY_D = np.float32(1e-30)
 
 
 def wide_perm(scene, perm):
@@ -38,6 +47,8 @@ def triangle_hit(scene, o, d, t0, mask=None, perm=None) -> dict:
     if scene.walk == "wide":
         return closest_hit_wide(scene, o, d, t0, mask, perm)
     _no_perm(scene, perm)
+    if scene.walk == "instanced":
+        return _instanced(scene, o, d, t0, mask, any_hit=False)
     if scene.walk == "links":
         return closest_hit_links(scene, o, d, t0, mask)
     return closest_hit(scene, o, d, t0, mask)
@@ -49,9 +60,78 @@ def triangle_occluded(scene, o, d, t0, mask=None, perm=None) -> torch.Tensor:
     if scene.walk == "wide":
         return occluded_wide(scene, o, d, t0, mask, perm)
     _no_perm(scene, perm)
+    if scene.walk == "instanced":
+        return _instanced(scene, o, d, t0, mask, any_hit=True)
     if scene.walk == "links":
         return occluded_links(scene, o, d, t0, mask)
     return occluded(scene, o, d, t0, mask)
+
+
+def _instance_of(scene, obj: torch.Tensor) -> torch.Tensor:
+    """The instance index of object ids `obj` (2 + i), clamped into the
+    table (a miss or a primitive takes instance 0; its row is masked)."""
+    return (obj - 2).clamp(0, scene.shared.inst_minv.shape[0] - 1).long()
+
+
+def _affine(x: torch.Tensor, m: torch.Tensor, translate: bool) -> torch.Tensor:
+    """Rows of `m` [.., 4, 4] (one matrix, or one a ray) applied to x [R, 3],
+    with m's translation where `translate`: elementwise products in the
+    order of `x @ m[:3, :3].T + m[:3, 3]`, so that the card and the CPU
+    round alike (no matrix product, whose float32 order a library picks)."""
+    cols = []
+    for j in range(3):
+        row = m[..., j, :]
+        c = x[:, 0] * row[..., 0] + x[:, 1] * row[..., 1] + x[:, 2] * row[..., 2]
+        cols.append(c + row[..., 3] if translate else c)
+    return torch.stack(cols, dim=1)
+
+
+def _instanced(scene, o, d, t0, mask, any_hit: bool):
+    """Shared-BLAS traversal (the JAX package's `_traverse_instanced`,
+    scene/query.py:24-87; the reference's BLASBVH::Intersect,
+    blas_bvh.cpp:376-389): for each instance, the rays moved into its
+    object space by its inverse TRS (directions not renormalised, so t is
+    one scalar in both spaces), the rays whose interval through its world
+    box cannot beat the running best t masked off, one walk of its mesh's
+    tables from that best t.  Closest hit: the walks' dict with the hit's
+    object and material from the instance table and its slot in the
+    scene's `shade`; any hit: bool [R], the instances ORed, each pass
+    skipping the rays already occluded."""
+    sh = scene.shared
+    r, dev = o.shape[0], o.device
+    live_in = torch.ones(r, dtype=torch.bool, device=dev) if mask is None else mask
+    rd = 1.0 / torch.where(d.abs() < _TINY_D, _TINY_D, d)
+    occ = torch.zeros(r, dtype=torch.bool, device=dev)
+    if not any_hit:
+        out = dict(t=t0, u=torch.zeros_like(t0), v=torch.zeros_like(t0))
+        for key in ("slot", "tri_idx", "obj_id", "mat_id"):
+            out[key] = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        for key in ("traversed", "tested"):
+            out[key] = torch.zeros(r, dtype=torch.int32, device=dev)
+    for i, m in enumerate(sh.inst_mesh):
+        mesh, minv = sh.meshes[m], sh.inst_minv[i]
+        o_i = _affine(o, minv, True)
+        d_i = _affine(d, minv, False)
+        # the world-box early-out against the running best t (the TLAS's role)
+        t1 = (sh.inst_aabb_min[i] - o) * rd
+        t2 = (sh.inst_aabb_max[i] - o) * rd
+        tn = torch.amax(torch.minimum(t1, t2), dim=-1)
+        tf = torch.amin(torch.maximum(t1, t2), dim=-1)
+        live = live_in & (tf >= tn) & (tf > 0.0)
+        if any_hit:
+            # a ray not occluded yet still has t0 as its best t
+            occ = occ | triangle_occluded(mesh, o_i, d_i, t0, live & (tn < t0) & ~occ)
+            continue
+        best = out["t"]
+        res = triangle_hit(mesh, o_i, d_i, best, live & (tn < best))
+        hit = res["slot"] >= 0
+        hit_ids = dict(slot=res["slot"] + sh.slot_base[m], tri_idx=res["tri_idx"],
+                       obj_id=sh.inst_obj[i].expand(r), mat_id=sh.inst_mat[i].expand(r))
+        for key in ("t", "u", "v", *hit_ids):
+            out[key] = torch.where(hit, hit_ids.get(key, res.get(key)), out[key])
+        out["traversed"] = out["traversed"] + res["traversed"]
+        out["tested"] = out["tested"] + res["tested"]
+    return occ if any_hit else out
 
 
 def _no_perm(scene, perm) -> None:
@@ -63,7 +143,10 @@ def find_nearest(scene, o: torch.Tensor, d: torch.Tensor, perm=None) -> dict:
     """Nearest hit over light quad -> floor plane -> triangle BVH, as
     FileScene::FindNearest (file_scene.cpp:170-175).  Object ids: 0 light,
     1 floor, >= 2 mesh instances, -1 miss.  `perm`: the wide walk's lane
-    order (`triangle_hit`)."""
+    order (`triangle_hit`).  A `PrimScene` answers with its objects' ids
+    (`primitive_scene.find_nearest`)."""
+    if isinstance(scene, PrimScene):
+        return prim.find_nearest(scene, o, d)
     t, obj = intersect.primitive_hits(scene, o, d)
     res = triangle_hit(scene, o, d, t, perm=perm)
     tri_hit = res["tri_idx"] >= 0
@@ -88,21 +171,30 @@ def find_nearest_diff(scene, o: torch.Tensor, d: torch.Tensor, perm=None) -> dic
     Trumbore against v0, e1, e2), the floor plane and the light quad, so
     gradients reach the rays and the vertices (detached visibility: no
     silhouette gradients).  The walk records stay as built: a vertex step
-    does not refit the tree."""
+    does not refit the tree.  On a shared-instancing scene the pool is in
+    object space, and the solve takes the rays through the winning
+    instance's inverse TRS (t is one scalar in both spaces).  A
+    `PrimScene`'s closed forms are differentiable as they stand."""
+    if isinstance(scene, PrimScene):
+        return prim.find_nearest(scene, o, d)
     hit = find_nearest(scene, o.detach(), d.detach(), perm)
     tri = hit["tri_idx"]
     obj = hit["obj_idx"]
+    o_mt, d_mt = o, d
+    if scene.shared is not None:
+        minv = scene.shared.inst_minv[_instance_of(scene, obj)]
+        o_mt, d_mt = _affine(o, minv, True), _affine(d, minv, False)
     # index_select: its backward adds rows (atomics), where an index's
     # sorts and serializes the rays that share a triangle
     rows = scene.pool.index_select(0, tri.clamp_min(0).long())
     v0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
-    h = torch.cross(d, e2, dim=-1)
+    h = torch.cross(d_mt, e2, dim=-1)
     a = vm.dot(e1, h)
     f = 1.0 / torch.where(a.abs() < np.float32(1e-20), np.float32(1e-20), a)
-    s = o - v0
+    s = o_mt - v0
     u = f * vm.dot(s, h)
     q = torch.cross(s, e1, dim=-1)
-    v = f * vm.dot(d, q)
+    v = f * vm.dot(d_mt, q)
     t_tri = f * vm.dot(e2, q)
     # floor plane y = -1
     dy = torch.where(d[:, 1].abs() < np.float32(1e-20), np.float32(1e-20), d[:, 1])
@@ -126,8 +218,12 @@ def is_occluded(scene, o: torch.Tensor, d: torch.Tensor, dist: torch.Tensor, mas
     RAY_FAR when `scene.shadow_quirk` (the reference's quirk), else within
     `dist`.  The floor never occludes.  `mask` [R] bool limits the triangle
     query, `perm` is the wide walk's lane order; bool [R].  The inputs are
-    detached: visibility carries no gradient."""
+    detached: visibility carries no gradient.  A `PrimScene` takes the
+    reference's own shadow query (`primitive_scene.is_occluded`: no
+    quirk, no mask; the caller masks)."""
     o, d, dist = o.detach(), d.detach(), dist.detach()
+    if isinstance(scene, PrimScene):
+        return prim.is_occluded(scene, o, d, dist)
     _, lhit = intersect.quad(o, d, scene.light_inv_t, scene.light_size, dist)
     tri_t = torch.full_like(dist, constants.RAY_FAR) if scene.shadow_quirk else dist
     return lhit | triangle_occluded(scene, o, d, tri_t.contiguous(), mask, perm)
@@ -141,7 +237,12 @@ def get_light_pos(scene) -> torch.Tensor:
 def get_hit_info(scene, hit: dict, point: torch.Tensor, d: torch.Tensor):
     """Normal, uv and material id per ray (tlas_file_scene.cpp:220-260),
     with the back-face flip `if dot(N, D) > 0: N = -N`.  Triangle hits
-    interpolate the winning slot's shading record."""
+    interpolate the winning slot's shading record; on a shared-instancing
+    scene that normal is in object space, and the winning instance's
+    normal matrix takes it to world space (renormalised).  A `PrimScene`
+    answers with its objects' normals (`primitive_scene.get_hit_info`)."""
+    if isinstance(scene, PrimScene):
+        return prim.get_hit_info(scene, hit, point, d)
     obj = hit["obj_idx"]
     tri_hit = (hit["tri_idx"] >= 0)[:, None]
     rec = scene.shade[hit["slot"].clamp_min(0).long()]
@@ -152,6 +253,11 @@ def get_hit_info(scene, hit: dict, point: torch.Tensor, d: torch.Tensor):
     uv_tri = w * rec[:, 9:11] + bu * rec[:, 11:13] + bv * rec[:, 13:15]
     sq = (n_tri * n_tri).sum(dim=-1, keepdim=True)
     n_tri = n_tri * torch.rsqrt(torch.clamp_min(sq, np.float32(1e-20)))
+    if scene.shared is not None:
+        n_w = _affine(n_tri, scene.shared.inst_nrm[_instance_of(scene, obj)], False)
+        n_w = n_w / torch.clamp_min(torch.linalg.vector_norm(n_w, dim=-1, keepdim=True),
+                                    np.float32(1e-20))
+        n_tri = torch.where(tri_hit, n_w, n_tri)
 
     # light quad normal: TransformVector((0,-1,0), T) (primitives.h:365-369)
     light_n = -scene.light_t[:3, 1]
@@ -194,11 +300,20 @@ def material_fields(scene, mat_id: torch.Tensor) -> dict:
     )
 
 
-def get_albedo(scene, fields: dict, uv: torch.Tensor) -> torch.Tensor:
+def get_albedo(scene, fields: dict, uv: torch.Tensor, obj=None, point=None) -> torch.Tensor:
     """Material::GetAlbedo (material.h:28-35): the texture's sample where
     the material has a texture, the constant albedo otherwise.  The tap is
     the nearest texel of the packed atlas, or on a bilinear scene the
-    bilinear tap of the float atlas, which carries the texel gradient."""
+    bilinear tap of the float atlas, which carries the texel gradient.  On
+    a `PrimScene` the material's albedo, overridden on the walls and the
+    floor where the hits' objects `obj` [R] and points `point` [R, 3] are
+    given (the reference's isAlbedoOverridden, renderer.cpp:32)."""
+    if isinstance(scene, PrimScene):
+        if obj is None or point is None:
+            return fields["albedo"]
+        overridden = ((obj >= 4) & (obj <= 6))[:, None]
+        return torch.where(overridden, prim.get_albedo_override(scene, obj, point),
+                           fields["albedo"])
     if scene.bilinear:
         tap, atlas = tex_mod.sample_bilinear, scene.atlas_texels
     else:

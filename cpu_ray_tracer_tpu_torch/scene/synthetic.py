@@ -21,7 +21,9 @@ reaches (`bunny_teapot.xml`: 10,952 triangles, depth 15, leaves of at most
   OBJ, for the grid and KD tree, which put them all in one cell.
 * `scene_over(base, host, shade16, obj_id, mat_id, wide)`: a DeviceScene
   over a hand-built BVH with the materials, atlas, light and floor of
-  `base`, collapsed into 8-wide nodes with `wide`.
+  `base`, collapsed into 8-wide nodes with `wide`;
+  `shared_scene_over(base, host, spec)`: a shared-instancing DeviceScene
+  whose one mesh is a hand-built BVH, instanced at the objects of `spec`.
 
 The host arrays are those `accel/pack.pack_bvh` takes (`node_min`,
 `node_max`, `left`, `right`, `axis`, `left_first`, `tri_count`,
@@ -38,7 +40,8 @@ from cpu_ray_tracer_tpu_torch.accel import pack
 from cpu_ray_tracer_tpu_torch.accel import wide as wide_mod
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
-from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene
+from cpu_ray_tracer_tpu_torch.scene.build import instance_tables
+from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, SharedInstances
 
 N_CUBES = 70
 BIG_LEAF = 600
@@ -132,14 +135,46 @@ def scene_over(base: DeviceScene, host: dict, shade16=None, obj_id=None,
             host["node_min"], host["node_max"], host["left"], host["right"], host["tri_count"],
             int(host["root"]), packed.nodes[:, pack.N_FIRST], packed.nodes[:, pack.N_COUNT],
             packed.leaf_codes)
+    return DeviceScene(packed=packed, pool=_pool(tri_v), wide=wide_pack, **_base_fields(base))
+
+
+def shared_scene_over(base, host: dict, spec) -> DeviceScene:
+    """A shared-instancing DeviceScene (on the CPU) of one mesh, the
+    hand-built BVH `host` in object space, instanced at the objects of
+    `spec` (`io/scene_xml.SceneSpec`: each object's transform; object ids
+    2 + i, material 2), with the materials, atlas, light and floor of
+    `base`.  A mesh deeper than STACK_CAP takes the link walk."""
+    tri_v = host["tri_v"]
+    n = tri_v.shape[0]
+    mesh = pack.pack_bvh(
+        host["node_min"], host["node_max"], host["left"], host["right"], host["axis"],
+        host["left_first"], host["tri_count"], host["tri_indices"], tri_v,
+        flat_shading(tri_v, mat=0), np.zeros(n, np.int32), np.zeros(n, np.int32),
+        root=int(host["root"]))
+    bounds = [(tuple(float(x) for x in host["node_min"][host["root"]]),
+               tuple(float(x) for x in host["node_max"][host["root"]]))]
+    inst_mesh = (0,) * len(spec.objects)
+    shared = SharedInstances(
+        [mesh], **instance_tables(spec, inst_mesh, bounds),
+        inst_obj=2 + np.arange(len(spec.objects), dtype=np.int32),
+        inst_mat=np.full(len(spec.objects), 2, np.int32), inst_mesh=inst_mesh,
+        mesh_bounds=bounds)
+    return DeviceScene(packed=None, pool=_pool(tri_v), shared=shared, **_base_fields(base))
+
+
+def _pool(tri_v: np.ndarray) -> np.ndarray:
     v0 = tri_v[:, 0]
+    return np.concatenate([v0, tri_v[:, 1] - v0, tri_v[:, 2] - v0], axis=1)
+
+
+def _base_fields(base: DeviceScene) -> dict:
+    """The materials, atlas, light and floor arguments of a DeviceScene, as
+    `base` holds them."""
 
     def np_(name):
         return getattr(base, name).cpu().numpy()
 
-    return DeviceScene(
-        packed=packed,
-        pool=np.concatenate([v0, tri_v[:, 1] - v0, tri_v[:, 2] - v0], axis=1),
+    return dict(
         materials=MaterialTable(
             albedo=np_("mat_albedo"), reflectivity=np_("mat_reflectivity"),
             refractivity=np_("mat_refractivity"), absorption=np_("mat_absorption"),
@@ -150,7 +185,7 @@ def scene_over(base: DeviceScene, host: dict, shade16=None, obj_id=None,
         light_t=np_("light_t"), light_inv_t=np_("light_inv_t"),
         light_size=float(base.light_size), light_color=np_("light_color"),
         floor_inv_to=float(base.floor_inv_to), skydome_tex=base.skydome_tex,
-        shadow_quirk=base.shadow_quirk, wide=wide_pack,
+        shadow_quirk=base.shadow_quirk,
     )
 
 

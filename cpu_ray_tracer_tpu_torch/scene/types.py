@@ -25,7 +25,14 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
 * `walk`: which kernel answers the scene's closest-hit and any-hit
   queries: "stack" (the binary walk, `ops/closest_hit.py`), "links" (the
   grid and KD cell forests and a BVH too deep for the stack,
-  `ops/link_walk.py`) or "wide" (`ops/wide_bvh.py`);
+  `ops/link_walk.py`), "wide" (`ops/wide_bvh.py`) or "instanced" (a
+  shared-instancing scene: one walk per instance over its mesh's tables,
+  `scene/query.py`);
+* `shared`: a shared-instancing scene's `SharedInstances`, else None.
+  Such a scene has no walk fields of its own: `shade` holds its meshes'
+  shading records one after another, `pool` the unique meshes'
+  object-space triangles, and `stack_kernels` is False (the JAX package's
+  `_kernel_scene_eligible` turns shared scenes away as well);
 * `leaf_codes`: the walk records' leaf code form (`accel/pack.py`): the
   count beside the first slot, or the first slot alone;
 * `stack_walk`: whether the binary stack walk serves the tree (a BVH of
@@ -61,6 +68,7 @@ material, texel, light-colour and pool buffers of a copy of the scene.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -101,10 +109,135 @@ class SceneInfo:
         return max([self.build_stats.max_depth] + [s.max_depth for s in self.blas_stats])
 
 
+def _buffer(module: nn.Module, name: str, x, dtype) -> None:
+    module.register_buffer(name, None if x is None else torch.from_numpy(np.array(x, dtype)))
+
+
+def register_walk(module: nn.Module, packed: PackedBVH) -> None:
+    """Register the closest-hit tables of `packed` on `module` as the walk
+    fields of the module docstring (`nodes`, `tris`, `shade`, `slot_ids`,
+    `links`, `node_records`, `link_records`, `tris4`, the roots, `depth`,
+    `leaf_codes`, `stack_walk`) and `walk`: "stack", or "links" for a tree
+    the stack walk does not serve."""
+    for name, x, dtype in (
+            ("nodes", packed.nodes, np.int32), ("tris", packed.tris, np.float32),
+            ("shade", packed.shade, np.float32), ("slot_ids", packed.slot_ids, np.int32),
+            ("links", packed.links, np.int32), ("node_records", packed.node_records, np.int32),
+            ("link_records", packed.link_records, np.int32), ("tris4", packed.tris4, np.float32)):
+        _buffer(module, name, x, dtype)
+    module.root = packed.root
+    module.roots = packed.roots
+    module.depth = packed.depth
+    module.root_is_leaf = bool(packed.nodes[packed.root, N_COUNT] > 0)
+    module.record_root = packed.record_root
+    module.stack_walk = packed.stack
+    module.leaf_codes = packed.leaf_codes
+    module.walk = "stack" if packed.stack else "links"
+
+
+def register_materials(module: nn.Module, materials: MaterialTable, atlas: Atlas) -> None:
+    """Register the material table (`mat_*`, with each material's texture
+    offset, width and height joined from the atlas) and the atlas
+    (`atlas_*`) on `module`."""
+    for name, x, dtype in (
+            ("mat_albedo", materials.albedo, np.float32),
+            ("mat_reflectivity", materials.reflectivity, np.float32),
+            ("mat_refractivity", materials.refractivity, np.float32),
+            ("mat_absorption", materials.absorption, np.float32),
+            ("mat_tex_id", materials.tex_id, np.int32),
+            ("mat_is_light", materials.is_light, np.bool_)):
+        _buffer(module, name, x, dtype)
+    textured = materials.tex_id >= 0
+    ts = np.maximum(materials.tex_id, 0)
+    _buffer(module, "mat_tex_off", np.where(textured, atlas.offset[ts], 0), np.int32)
+    _buffer(module, "mat_tex_w", np.where(textured, atlas.width[ts], 1), np.int32)
+    _buffer(module, "mat_tex_h", np.where(textured, atlas.height[ts], 1), np.int32)
+    for name, x, dtype in (
+            ("atlas_texels", atlas.texels, np.float32), ("atlas_packed", atlas.packed, np.int32),
+            ("atlas_offset", atlas.offset, np.int32), ("atlas_width", atlas.width, np.int32),
+            ("atlas_height", atlas.height, np.int32)):
+        _buffer(module, name, x, dtype)
+
+
+class MeshTables(nn.Module):
+    """One unique mesh's closest-hit tables on a shared-instancing scene:
+    the walk fields of a baked scene (`register_walk`) over the mesh's
+    object-space BVH, so that `ops/closest_hit` and `ops/link_walk` walk it
+    as they walk a baked scene.  Its slots are the mesh's own; the meta
+    word carries the pool-global triangle id."""
+
+    def __init__(self, packed: PackedBVH):
+        super().__init__()
+        register_walk(self, packed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tris4.device
+
+
+class SharedInstances(nn.Module):
+    """Object-space shared-BLAS instancing tables (`instancing="shared"`),
+    as the JAX package's `SharedInstances` (scene/types.py:22-70 there):
+    the reference's BLASBVH (blas_bvh.cpp:376-389), where N instances share
+    one BLAS and SetTransform is O(1).  One object-space BVH per unique
+    mesh (`meshes`, a ModuleList of `MeshTables`); a query makes one
+    masked pass per instance over its mesh's tables with the rays moved
+    into object space by the instance's inverse TRS, directions not
+    renormalised, so that t is one scalar in both spaces
+    (`scene/query.py`).  Buffers:
+
+    * `inst_minv` float32 [I, 4, 4]: world to object, the full TRS inverse;
+    * `inst_nrm` float32 [I, 3, 3]: the inverse-transpose of the linear
+      part (object normal to world);
+    * `inst_aabb_min`, `inst_aabb_max` float32 [I, 3]: each instance's
+      world box, the early-out against the running best t (the TLAS's
+      role);
+    * `inst_obj`, `inst_mat` int32 [I]: the object id (2 + i) and the
+      material of each instance.
+
+    `inst_mesh` (tuple) maps an instance to its mesh, `mesh_bounds` holds
+    each mesh's object-space root box ((min3, max3), all that a transform
+    change needs to recompute the world boxes), `slot_base` each mesh's
+    first slot in the scene's concatenated `shade` table.
+
+    A known, bounded difference from the baked forest, kept from the JAX
+    package: Moller-Trumbore runs in unscaled object space, where a
+    grazing sliver's determinant is about s^3 larger than in world space,
+    so a world |det| just under TRI_EPS can be accepted here
+    (tests/test_instancing.py::test_bench_scale_multi_mesh there)."""
+
+    def __init__(self, meshes: list[PackedBVH], inst_minv, inst_nrm, inst_aabb_min,
+                 inst_aabb_max, inst_obj, inst_mat, inst_mesh, mesh_bounds):
+        super().__init__()
+        self.meshes = nn.ModuleList(MeshTables(p) for p in meshes)
+        self.inst_mesh = tuple(int(m) for m in inst_mesh)
+        self.mesh_bounds = tuple(mesh_bounds)
+        self.slot_base = tuple(int(x) for x in np.cumsum([0] + [p.tris.shape[0] for p in meshes])[:-1])
+        self.set_transforms(inst_minv, inst_nrm, inst_aabb_min, inst_aabb_max)
+        _buffer(self, "inst_obj", inst_obj, np.int32)
+        _buffer(self, "inst_mat", inst_mat, np.int32)
+
+    def set_transforms(self, inst_minv, inst_nrm, inst_aabb_min, inst_aabb_max) -> None:
+        """Register the transform buffers (numpy), on the device of the
+        mesh tables."""
+        dev = self.meshes[0].device
+        for name, x in (("inst_minv", inst_minv), ("inst_nrm", inst_nrm),
+                        ("inst_aabb_min", inst_aabb_min), ("inst_aabb_max", inst_aabb_max)):
+            self.register_buffer(name, torch.from_numpy(np.array(x, np.float32)).to(dev))
+
+    def with_transforms(self, inst_minv, inst_nrm, inst_aabb_min, inst_aabb_max):
+        """A copy that shares every mesh table and the id buffers, with new
+        transform buffers: the O(1) SetTransform."""
+        out = copy.copy(self)
+        out._buffers = dict(self._buffers)
+        out.set_transforms(inst_minv, inst_nrm, inst_aabb_min, inst_aabb_max)
+        return out
+
+
 class DeviceScene(nn.Module):
     def __init__(
         self,
-        packed: PackedBVH,
+        packed: PackedBVH | None,
         pool: np.ndarray,
         materials: MaterialTable,
         atlas: Atlas,
@@ -118,58 +251,34 @@ class DeviceScene(nn.Module):
         wide: PackedWide | None = None,
         wide_bounce: bool = False,
         bilinear: bool = False,
+        shared: SharedInstances | None = None,
     ):
         super().__init__()
 
         def buf(name, x, dtype):
-            self.register_buffer(
-                name, None if x is None else torch.from_numpy(np.array(x, dtype)))
+            _buffer(self, name, x, dtype)
 
-        buf("nodes", packed.nodes, np.int32)
-        buf("tris", packed.tris, np.float32)
-        buf("shade", packed.shade, np.float32)
-        buf("slot_ids", packed.slot_ids, np.int32)
         buf("pool", pool, np.float32)
-        self.root = packed.root
-        self.roots = packed.roots
-        self.depth = packed.depth
-        self.root_is_leaf = bool(packed.nodes[packed.root, N_COUNT] > 0)
-        buf("links", packed.links, np.int32)
-        buf("node_records", packed.node_records, np.int32)
-        self.record_root = packed.record_root
-        buf("link_records", packed.link_records, np.int32)
-        buf("tris4", packed.tris4, np.float32)
+        self.shared = shared
+        if shared is None:
+            register_walk(self, packed)
+        else:
+            # the meshes' shading records one after another: a hit's slot
+            # plus its mesh's `slot_base` indexes them
+            buf("shade", np.concatenate([m.shade.numpy() for m in shared.meshes]), np.float32)
+            self.walk = "instanced"
         buf("wide_nodes", None if wide is None else wide.nodes, np.int32)
         buf("wide_roots", None if wide is None else wide.roots, np.int32)
         buf("wide_records", None if wide is None else wide.records, np.int32)
         self.wide_stack = 0 if wide is None else wide.stack
-        self.stack_walk = packed.stack
-        self.leaf_codes = packed.leaf_codes
         if wide is not None:
             self.walk = "wide"
-        else:
-            self.walk = "stack" if packed.stack else "links"
         self.bilinear = bool(bilinear)
-        self.stack_kernels = (not packed.cell_forest and packed.slot_ids is None
-                              and (wide is None or wide_bounce) and not self.bilinear)
+        self.stack_kernels = (shared is None and not packed.cell_forest
+                              and packed.slot_ids is None and (wide is None or wide_bounce)
+                              and not self.bilinear)
 
-        buf("mat_albedo", materials.albedo, np.float32)
-        buf("mat_reflectivity", materials.reflectivity, np.float32)
-        buf("mat_refractivity", materials.refractivity, np.float32)
-        buf("mat_absorption", materials.absorption, np.float32)
-        buf("mat_tex_id", materials.tex_id, np.int32)
-        buf("mat_is_light", materials.is_light, np.bool_)
-        textured = materials.tex_id >= 0
-        ts = np.maximum(materials.tex_id, 0)
-        buf("mat_tex_off", np.where(textured, atlas.offset[ts], 0), np.int32)
-        buf("mat_tex_w", np.where(textured, atlas.width[ts], 1), np.int32)
-        buf("mat_tex_h", np.where(textured, atlas.height[ts], 1), np.int32)
-
-        buf("atlas_texels", atlas.texels, np.float32)
-        buf("atlas_packed", atlas.packed, np.int32)
-        buf("atlas_offset", atlas.offset, np.int32)
-        buf("atlas_width", atlas.width, np.int32)
-        buf("atlas_height", atlas.height, np.int32)
+        register_materials(self, materials, atlas)
         self.skydome_tex = int(skydome_tex)
 
         buf("light_t", light_t, np.float32)
@@ -182,7 +291,7 @@ class DeviceScene(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.nodes.device
+        return self.pool.device
 
     @property
     def material_count(self) -> int:

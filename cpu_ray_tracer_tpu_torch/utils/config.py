@@ -5,10 +5,9 @@ fields, defaults and flag parsing (every field is a flag: `--scene-xml`,
 plus `device`, the device the port renders on (the card unless the caller
 asks for another).
 
-Fields for what the port leaves out or has not ported yet raise where
-they would take effect: `use_pallas="false"` (the JAX package's XLA
-traversals, ROADMAP item 12) in `build_scene`, `instancing="shared"`
-(item 13) in `compile_scene`, `sharded` (item 14) in the CLI.  The port
+Fields for what the port has not ported yet raise where they would take
+effect: `use_pallas="false"` (the JAX package's XLA traversals, ROADMAP
+item 12) in `build_scene`, `sharded` (item 14) in the CLI.  The port
 runs its kernels for "auto" and "true" (their plain versions on the CPU).
 `whitted_cap_factor` and `whitted_grow_cap` are accepted and change
 nothing: the port's Whitted tracer gathers children exactly and drops
@@ -30,7 +29,7 @@ class RenderConfig:
     scene_xml: str = ""
     layout: str = "tlas"  # "tlas" (TLASFileScene) | "mono" (FileScene)
     accel: str = "bvh"  # "bvh" | "grid" | "kdtree"
-    instancing: str = "baked"  # "baked" | "shared" (not ported)
+    instancing: str = "baked"  # "baked" | "shared" (one BVH per unique mesh)
     parity: bool = False  # the reference's normals quirk and BVH stops
     use_pallas: str = "auto"  # "auto" | "true" (the kernels) | "false" (not ported)
     shadow_quirk: bool = True

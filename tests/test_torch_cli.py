@@ -10,6 +10,8 @@ on the CPU (`--device cpu`, the kernels' plain versions).
   CPU defaults (the XLA traversals over the reference's leaves of 2); the
   port builds its kernels' tables (leaves of up to 24), so hits agree up
   to ties.
+* `--instancing shared` (one BVH per unique mesh) against the JAX CLI on
+  the same argv, under the same rule.
 * Each flag for what the port does not run raises NotImplementedError
   naming its ROADMAP item.
 """
@@ -105,7 +107,8 @@ def _option(argv, flag, default):
 def _port_radiance(argv, kind):
     """(radiance(o, d, seeds), (o, d, seeds)) of the frame the argv renders,
     through the port on the CPU."""
-    kwargs = dict(layout=_option(argv, "--layout", "tlas"), accel=_option(argv, "--accel", "bvh"))
+    kwargs = dict(layout=_option(argv, "--layout", "tlas"), accel=_option(argv, "--accel", "bvh"),
+                  instancing=_option(argv, "--instancing", "baked"))
     scene, _ = compile_scene(_option(argv, "--scene-xml", None), device="cpu", **kwargs)
     cam = dict(pos=(0.0, 0.0, -2.0), target=(0.0, 0.0, -1.0))
     if "--cam-pos" in argv:
@@ -124,7 +127,17 @@ def _port_radiance(argv, kind):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_png_matches_jax_cli(tmp_path, case):
-    argv, kind = CASES[case]
+    _matches_jax_cli(tmp_path, *CASES[case])
+
+
+def test_shared_instancing_matches_jax_cli(tmp_path):
+    """`--instancing shared` renders, and matches the JAX CLI's frame (its
+    XLA traversal per instance) under the rule above."""
+    _matches_jax_cli(tmp_path, ["--scene-xml", BENCH_XML, "--integrator", "whitted",
+                                "--instancing", "shared", *BENCH_CAM], "whitted")
+
+
+def _matches_jax_cli(tmp_path, argv, kind):
     argv = argv + ["--width", str(W), "--height", str(H)]
     ours, theirs = str(tmp_path / "port.png"), str(tmp_path / "jax.png")
     jl_ours, jl_theirs = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
@@ -187,7 +200,6 @@ def test_checkpoints_resume_across_packages(tmp_path):
 
 @pytest.mark.parametrize("flag, item", [
     (["--use-pallas", "false"], "item 12"),
-    (["--instancing", "shared"], "item 13"),
     (["--sharded", "true"], "item 14"),
 ])
 def test_unported_flags_raise(tmp_path, flag, item):

@@ -83,5 +83,6 @@ def test_every_kernel_module_is_covered():
                  "accel.grid_builder", "accel.kdtree_builder", "accel.wide",
                  "render.pathtracer", "render.whitted", "ops.leaf_probe", "ops.sync_probe",
                  "benchmarks.mxu_probe", "benchmarks.sync_probe", "benchmarks.leaf_tolerance",
-                 "diff.grad", "diff.optimize", "render.basics", "render.progressive", "cli"):
+                 "diff.grad", "diff.optimize", "render.basics", "render.progressive", "cli",
+                 "scene.animate", "scene.primitive_scene", "ops.primitives", "core.noise"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -125,11 +125,20 @@ def test_scene_moves_with_to():
     assert len(list(scene.buffers())) == len(scene.state_dict())
 
 
-@pytest.mark.parametrize("kwargs", [dict(layout="mono", instancing="shared"),
-                                    dict(instancing="shared")])
-def test_other_configurations_not_ported_yet(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_scene(CUBE_XML, device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs", [dict(layout="mono"), dict(accel="grid"),
+                                    dict(accel="kdtree"), dict(wide=True)],
+                         ids=["mono-bvh", "tlas-grid", "tlas-kdtree", "wide"])
+def test_shared_instancing_needs_tlas_and_bvh(kwargs):
+    """The JAX package's ValueError for shared instancing outside the TLAS
+    layout's BVH (scene/build.py:160-164 there), and for wide tables,
+    which it has no shared form of."""
+    with pytest.raises(ValueError, match="instancing='shared' requires"):
+        compile_scene(CUBE_XML, instancing="shared", device="cpu", **kwargs)
+    if "wide" not in kwargs:
+        import cpu_ray_tracer_tpu.scene.build as jax_build
+
+        with pytest.raises(ValueError, match="instancing='shared' requires"):
+            jax_build.compile_scene(CUBE_XML, instancing="shared", **kwargs)
 
 
 def test_entry_points_default_to_the_card():

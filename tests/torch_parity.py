@@ -101,14 +101,55 @@ def jax_scene_over(host: dict, shade16, obj_id, mat_id, xml: str = CUBE_XML):
 
 
 def jax_scene_arrays(scene):
-    """(arrays, meta) of a JAX DeviceScene for `scene_from_arrays`."""
-    pk, m, at = scene.packed, scene.materials, scene.atlas
-    arrays = {
-        "tris.v0": scene.tris.v0, "tris.e1": scene.tris.e1, "tris.e2": scene.tris.e2,
-        "tris.obj_id": scene.tris.obj_id, "tris.mat_id": scene.tris.mat_id,
+    """(arrays, meta) of a JAX DeviceScene for `scene_from_arrays`, a
+    shared-instancing one included."""
+    if scene.shared is not None:
+        return _jax_shared_arrays(scene)
+    pk = scene.packed
+    arrays, meta = _jax_common_arrays(scene)
+    arrays.update({
         "packed.slot_tri": pk.slot_tri,
         "packed.node_aabb": pk.node_aabb, "packed.node_meta2": pk.node_meta2,
         "packed.tri_rows": pk.tri_rows, "packed.tri_shade_rows": pk.tri_shade_rows,
+    })
+    if pk.node_nearfar is not None:
+        arrays["packed.node_nearfar"] = pk.node_nearfar
+    meta.update(root=pk.root, stack_depth=pk.stack_depth, meta_in_shade=pk.meta_in_shade)
+    return {k: np.asarray(v) for k, v in arrays.items()}, meta
+
+
+def _jax_shared_arrays(scene):
+    sh = scene.shared
+    arrays, meta = _jax_common_arrays(scene)
+    arrays["tris.shade"] = scene.tris.shade
+    for k in ("inst_minv", "inst_nrm", "inst_aabb_min", "inst_aabb_max", "inst_obj", "inst_mat"):
+        arrays[f"shared.{k}"] = getattr(sh, k)
+    for s, pk in enumerate(sh.packs):
+        for k in ("node_aabb", "node_meta2", "tri_rows", "slot_tri", "node_nearfar"):
+            if getattr(pk, k) is not None:
+                arrays[f"shared.packs.{s}.{k}"] = getattr(pk, k)
+    meta.update(inst_mesh=sh.inst_mesh, mesh_bounds=sh.mesh_bounds,
+                mesh_depths=[pk.stack_depth or 1 for pk in sh.packs])
+    return {k: np.asarray(v) for k, v in arrays.items()}, meta
+
+
+def jax_prim_arrays(scene):
+    """The arrays of a JAX `PrimScene` for `prim_scene_from_arrays`."""
+    at = scene.atlas
+    arrays = {k: getattr(scene, k) for k in (
+        "light_t", "light_inv_t", "light_size", "light_color", "sphere_pos", "sphere_r2",
+        "sphere_inv_r", "cube_m", "cube_inv_m", "cube_bmin", "cube_bmax", "plane_n", "plane_d",
+        "torus_t", "torus_inv_t", "torus_rc2", "torus_rt2", "torus_r2")}
+    arrays.update({"atlas.texels": at.texels, "atlas.packed": at.packed, "atlas.offset": at.offset,
+                   "atlas.width": at.width, "atlas.height": at.height})
+    return {k: np.asarray(v) for k, v in arrays.items()}
+
+
+def _jax_common_arrays(scene):
+    m, at = scene.materials, scene.atlas
+    arrays = {
+        "tris.v0": scene.tris.v0, "tris.e1": scene.tris.e1, "tris.e2": scene.tris.e2,
+        "tris.obj_id": scene.tris.obj_id, "tris.mat_id": scene.tris.mat_id,
         "materials.albedo": m.albedo, "materials.reflectivity": m.reflectivity,
         "materials.refractivity": m.refractivity, "materials.absorption": m.absorption,
         "materials.tex_id": m.tex_id, "materials.is_light": m.is_light,
@@ -118,12 +159,6 @@ def jax_scene_arrays(scene):
         "light_size": scene.light_size, "light_color": scene.light_color,
         "floor_inv_to": scene.floor_inv_to,
     }
-    if pk.node_nearfar is not None:
-        arrays["packed.node_nearfar"] = pk.node_nearfar
-    arrays = {k: np.asarray(v) for k, v in arrays.items()}
-    meta = dict(
-        root=pk.root, stack_depth=pk.stack_depth, skydome_tex=scene.skydome_tex,
-        shadow_quirk=scene.shadow_quirk, meta_in_shade=pk.meta_in_shade,
-        bilinear=scene.bilinear,
-    )
+    meta = dict(skydome_tex=scene.skydome_tex, shadow_quirk=scene.shadow_quirk,
+                bilinear=scene.bilinear)
     return arrays, meta
