@@ -180,6 +180,28 @@ and depth):
     The kernels line gives K1 `instanced_launches`: per shared pass and
     per shared Whitted frame.
 
+The reference walks (`compile_scene(use_pallas=False)`: the JAX
+package's XLA traversals in plain PyTorch, no kernel), on the same scene,
+view and depth:
+
+12. (a) the TLAS BVH, grid forest and KD forest and the mono grid and KD
+    tree, closest and any hit on the 921,600 primary rays and on the live
+    bounce rays after the first hit (phase 3's): each walk on the card
+    against its own run on the CPU on the same rays, integers exact
+    (counters and loop steps included), floats within atol=2e-5,
+    rtol=1e-4; loop steps, host syncs, ms on the card and on the CPU, mean
+    and peak `traversed` / `tested` per ray; (b) a `render_pass` and a
+    Whitted frame at full width for the TLAS BVH, grid and KD tree, no
+    kernel launched: `rays_traced` within 1e-4 relative of the kernels'
+    route's pass on the same scene and camera (the JAX package's
+    invariant across accelerators), energy within 1e-3 of it, images
+    finite and non-zero; (c) `cli.main` with `--use-pallas false` on the
+    card and with `--device cpu` at 64x40, path tracer (2 samples) and
+    Whitted: the JSONL counters equal record by record; (d) a
+    shared-instancing pass on this route against the baked one: energy
+    within 1e-3, the image rule of phase 11.  Its walks add no entry to
+    the kernels line.
+
 Each drive of a main path (one pass or one frame, a gradient or train
 step, a CLI run, or one probe run) sets every kernel's launch count to 0
 just before it and reads the counts just after; every kernel of the path
@@ -272,6 +294,14 @@ SYNC_SASS = dict(C={"BAR.RED": 1}, D={"REDUX": 1}, E1={"REDUX": 1}, E2={"REDUX":
 # threads of 4 rays
 VPU_RAYS_PER_BLOCK, VPU_TESTS_PER_LOOP = 512, 4
 SYNC_THREADS, SYNC_RAYS_PER_THREAD = 1024, 4
+# phase 12: the reference walks' scenes (compile_scene(use_pallas=False,
+# ...)) and the pass salt of its renders
+REF_CONFIGS = {"tlas-bvh": dict(layout="tlas", accel="bvh"),
+               "tlas-grid": dict(layout="tlas", accel="grid"),
+               "tlas-kdtree": dict(layout="tlas", accel="kdtree"),
+               "mono-grid": dict(layout="mono", accel="grid"),
+               "mono-kdtree": dict(layout="mono", accel="kdtree")}
+REF_SPP = 1
 
 
 def card() -> str:
@@ -1854,6 +1884,136 @@ def main() -> int:
         print(f"cli --instancing shared {integrator} 64x40: {1e3 * seconds:.1f} ms, launches "
               f"{ {k: c for k, c in counts.items() if c} }")
     shutil.rmtree(cli_dir, ignore_errors=True)
+
+    # --- 12. the reference walks (use_pallas=False) on the card ------------
+    # (a) each walk against its own run on the CPU on the same rays
+    ref_cpu, ref_gpu = {}, {}
+    for label, kw in REF_CONFIGS.items():
+        start = time.perf_counter()
+        ref_cpu[label], ref_info = compile_scene(XML, use_pallas=False, device="cpu", **kw)
+        ref_gpu[label] = copy.deepcopy(ref_cpu[label]).to(dev)
+        print(f"reference scene {label}: walk {ref_gpu[label].walk}, {ref_info.num_nodes} nodes "
+              f"or cells in {len(ref_gpu[label].reference.structs)} structures, compiled and "
+              f"moved in {time.perf_counter() - start:.2f} s")
+    ray_sets = dict(primary=(o, d, t0), bounce=bargs[1:4])
+    for label, g in ref_gpu.items():
+        for rays_label, (ro, rd_, rt0) in ray_sets.items():
+            for any_hit in (False, True):
+                what = f"reference {label} {'any' if any_hit else 'closest'} {rays_label}"
+                g.reference.walk(ro[:4096], rd_[:4096], rt0[:4096], any_hit)  # warm-up
+                got, seconds, counts = drive(what, lambda g=g, a=(ro, rd_, rt0, any_hit):
+                                             g.reference.walk(*a), [])
+                if any(counts.values()):
+                    raise AssertionError(f"{what}: launched {counts}")
+                start = time.perf_counter()
+                want = ref_cpu[label].reference.walk(ro.cpu(), rd_.cpu(), rt0.cpu(), any_hit)
+                cpu_s = time.perf_counter() - start
+                for key in ("tri_idx", "obj_id", "mat_id", "traversed", "tested"):
+                    if not torch.equal(got[key].cpu(), want[key]):
+                        raise AssertionError(f"{what}: {key} differs from the CPU's")
+                err = max(float((got[k].cpu() - want[k]).abs().max()) for k in ("t", "u", "v"))
+                for key in ("t", "u", "v"):
+                    if not torch.allclose(got[key].cpu(), want[key], atol=2e-5, rtol=1e-4):
+                        raise AssertionError(f"{what}: {key} beyond the parity tolerance")
+                if got["loop_steps"] != want["loop_steps"]:
+                    raise AssertionError(f"{what}: loop steps {got['loop_steps']}, the CPU's "
+                                         f"{want['loop_steps']}")
+                tr, te = got["traversed"].float(), got["tested"].float()
+                print(f"{what}: {ro.shape[0]} rays, {int((got['tri_idx'] >= 0).sum())} hits, "
+                      f"{got['loop_steps']} loop steps, {got['syncs']} host syncs, "
+                      f"{1e3 * seconds:.1f} ms on the card, {1e3 * cpu_s:.1f} ms on the CPU; "
+                      f"traversed mean {float(tr.mean()):.3f} peak {int(tr.max())}, tested "
+                      f"mean {float(te.mean()):.3f} peak {int(te.max())}; integers equal, "
+                      f"floats max abs err {err:.3g}; {card_line}")
+
+    # (b) a pass and a Whitted frame per accelerator at full width, against
+    # the kernels' route on the same scene and camera
+    ref_passes = {}
+    for label in ("tlas-bvh", "tlas-grid", "tlas-kdtree"):
+        g = ref_gpu[label]
+        kernel_scene = scene if label == "tlas-bvh" else gpu_scenes[label.split("-")[1]]
+        (img, stats), seconds, counts = drive(
+            f"reference render_pass {label}",
+            lambda g=g: pathtracer.render_pass(g, camera, REF_SPP, DEPTH), [])
+        kimg, kstats = pathtracer.render_pass(kernel_scene, camera, REF_SPP, DEPTH, 0)
+        energy, k_energy = float(img.sum()), float(kimg.sum())
+        ref_passes[label] = img
+        print(f"reference render_pass {WIDTH}x{HEIGHT} depth {DEPTH} {label}: "
+              f"{1e3 * seconds:.1f} ms, rays_traced {stats['rays_traced']} (the kernels' route "
+              f"{kstats['rays_traced']}), {stats['rays_traced'] / seconds:.4g} rays/s, energy "
+              f"{energy:.6g} (kernels {k_energy:.6g}), traversed {int(stats['traversed'].sum())} "
+              f"tested {int(stats['tested'].sum())}, launches {sum(counts.values())}; "
+              f"{card_line}")
+        if any(counts.values()) or not bool(torch.isfinite(img).all()) or energy <= 0.0:
+            raise AssertionError(f"reference render_pass {label}: launches {counts}, energy "
+                                 f"{energy}")
+        if abs(stats["rays_traced"] - kstats["rays_traced"]) > 1e-4 * kstats["rays_traced"]:
+            raise AssertionError(f"reference render_pass {label}: rays_traced "
+                                 f"{stats['rays_traced']}, the kernels' {kstats['rays_traced']}")
+        if abs(energy - k_energy) > 1e-3 * k_energy:
+            raise AssertionError(f"reference render_pass {label}: energy {energy}, the "
+                                 f"kernels' {k_energy}")
+        out, seconds, counts = drive(f"reference whitted {label}",
+                                     lambda g=g: whitted.render(g, camera, DEPTH), [])
+        k_out = whitted.render(kernel_scene, camera, DEPTH)
+        w_energy, kw_energy = float(out["image"].sum()), float(k_out["image"].sum())
+        print(f"reference whitted {WIDTH}x{HEIGHT} depth {DEPTH} {label}: {1e3 * seconds:.1f} ms, "
+              f"rays {out['rays']} (kernels' route {k_out['rays']}) in {out['levels']} levels, "
+              f"energy {w_energy:.6g} (kernels {kw_energy:.6g}), primary traversed "
+              f"{int(out['traversed'].sum())} tested {int(out['tested'].sum())}, launches "
+              f"{sum(counts.values())}; {card_line}")
+        if (any(counts.values()) or not bool(torch.isfinite(out["image"]).all())
+                or w_energy <= 0.0 or abs(w_energy - kw_energy) > 1e-3 * kw_energy):
+            raise AssertionError(f"reference whitted {label}: launches {counts}, energy "
+                                 f"{w_energy}, the kernels' {kw_energy}")
+
+    # (c) the CLI with --use-pallas false on the card against the CPU
+    cli_dir = os.path.join(REPO, "build", "smoke_cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    counter_keys = ("total_traversal", "average_traversal", "peak_traversal", "total_tests",
+                    "average_tests", "peak_tests")
+    for integrator in ("pathtracer", "whitted"):
+        recs = {}
+        for device in ("cuda", "cpu"):
+            jl = os.path.join(cli_dir, f"ref_{integrator}_{device}.jsonl")
+            rc, seconds, counts = drive(f"cli --use-pallas false {integrator} {device}", lambda i=integrator, dv=device, j=jl: cli.main([
+                "--scene-xml", XML, "--integrator", i, "--use-pallas", "false", "--spp", "2",
+                "--width", "64", "--height", "40", "--device", dv,
+                "--cam-pos", ",".join(str(x) for x in CAMERA["pos"]),
+                "--cam-target", ",".join(str(x) for x in CAMERA["target"]),
+                "--out", os.path.join(cli_dir, "ref.png"), "--metrics-jsonl", j]), [])
+            with open(jl) as f:
+                recs[device] = [json.loads(line) for line in f.read().strip().splitlines()]
+            if rc != 0 or any(counts.values()):
+                raise AssertionError(f"cli --use-pallas false {integrator} {device}: rc {rc}, "
+                                     f"launches {counts}")
+            print(f"cli --use-pallas false {integrator} {device} 64x40: {1e3 * seconds:.1f} ms, "
+                  f"counters {[{k: r[k] for k in counter_keys} for r in recs[device]]}")
+        if ([{k: r[k] for k in counter_keys} for r in recs["cuda"]]
+                != [{k: r[k] for k in counter_keys} for r in recs["cpu"]]):
+            raise AssertionError(f"cli --use-pallas false {integrator}: the card's counters "
+                                 "differ from the CPU's")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+
+    # (d) a shared-instancing pass on this route against the baked one,
+    # under the rule of phase 11
+    sh_ref_cpu, _ = compile_scene(XML, instancing="shared", use_pallas=False, device="cpu")
+    sh_ref = copy.deepcopy(sh_ref_cpu).to(dev)
+    (img_sh, st_sh), seconds, counts = drive(
+        "reference shared render_pass",
+        lambda: pathtracer.render_pass(sh_ref, camera, REF_SPP, DEPTH), [])
+    sh_energy, bk_energy = float(img_sh.sum()), float(ref_passes["tlas-bvh"].sum())
+    print(f"reference render_pass {WIDTH}x{HEIGHT} depth {DEPTH} shared: {1e3 * seconds:.1f} ms, "
+          f"rays_traced {st_sh['rays_traced']}, energy {sh_energy:.6g} (baked {bk_energy:.6g}), "
+          f"launches {sum(counts.values())}; {card_line}")
+    if any(counts.values()) or abs(sh_energy - bk_energy) > 1e-3 * bk_energy:
+        raise AssertionError(f"reference shared pass: launches {counts}, energy {sh_energy}, "
+                             f"baked {bk_energy}")
+    shared_vs_baked(
+        "reference render_pass", img_sh, ref_passes["tlas-bvh"],
+        lambda oo, dd, ss: pathtracer.sample_radiance(sh_ref, oo, dd, ss, DEPTH)[0],
+        lambda oo, dd, ss: pathtracer.sample_radiance(ref_gpu["tlas-bvh"], oo, dd, ss, DEPTH)[0],
+        pathtracer.camera_rays(camera, REF_SPP, dev))
 
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),

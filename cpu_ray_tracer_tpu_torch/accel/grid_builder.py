@@ -3,9 +3,9 @@ JAX package's `cpu_ray_tracer_tpu/accel/grid_builder.py` (`build_grid`).
 
 Semantics of infra/grid.cpp:4-54: per-axis resolution =
 floor(size_axis * (5*N/V)^(1/3)) clamped to [1, 128]; each triangle is
-inserted into every cell its AABB overlaps.  The JAX package's `to_device`
-(the arrays of its XLA DDA traversal) is not ported: the port walks grids
-as cell forests (`accel/cell_tree.py`).
+inserted into every cell its AABB overlaps.  The kernels walk grids as
+cell forests (`accel/cell_tree.py`); `to_device` gives the arrays of the
+reference DDA (`ops/traverse_grid.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import time
 import numpy as np
 
 from cpu_ray_tracer_tpu_torch.accel.bvh_builder import BuildStats
+from cpu_ray_tracer_tpu_torch.accel.types import GridArrays
 
 
 def build_grid(tri_v: np.ndarray, max_res: int = 128) -> tuple[dict, BuildStats]:
@@ -75,3 +76,9 @@ def build_grid(tri_v: np.ndarray, max_res: int = 128) -> tuple[dict, BuildStats]
         cell_tris=tri_ids,
         max_cell_len=stats.max_leaf,
     ), stats
+
+
+def to_device(host: dict, device) -> GridArrays:
+    """The `GridArrays` of a `build_grid` dict, on `device`."""
+    return GridArrays(host["bounds_min"], host["bounds_max"], host["resolution"],
+                      host["cell_start"], host["cell_tris"], host["max_cell_len"]).to(device)

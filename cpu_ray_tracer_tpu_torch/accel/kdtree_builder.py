@@ -6,8 +6,9 @@ Semantics of infra/kdtree.cpp:45-108: midpoint split on the node's longest
 axis, max build depth 20, leaf at <= 2 triangles; triangles straddling the
 split plane are DUPLICATED into both children.  `sah=True` takes the
 binned-SAH split instead (the reference's KD_SAH, off by default,
-blas_kdtree.h:3).  The port walks KD trees as cell forests
-(`accel/cell_tree.py`); the JAX package's `to_device` is not ported.
+blas_kdtree.h:3).  The kernels walk KD trees as cell forests
+(`accel/cell_tree.py`); `to_device` gives the arrays of the reference KD
+descent (`ops/traverse_kd.py`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import time
 import numpy as np
 
 from cpu_ray_tracer_tpu_torch.accel.bvh_builder import BuildStats
+from cpu_ray_tracer_tpu_torch.accel.types import KDTreeArrays
 
 
 def build_kdtree(
@@ -137,3 +139,10 @@ def _sah_split(tmin, tmax, bmin, bmax, bins):
     if best[1] < 0 or best[0] >= no_split:
         return -1, 0.0
     return best[1], best[2]
+
+
+def to_device(host: dict, device) -> KDTreeArrays:
+    """The `KDTreeArrays` of a `build_kdtree` dict, on `device`."""
+    return KDTreeArrays(*(host[k] for k in ("split_axis", "split_dist", "left", "right", "first",
+                                            "count", "tri_ids", "bounds_min", "bounds_max")),
+                        max_depth=host["max_depth"], max_leaf=host["max_leaf"]).to(device)

@@ -1,7 +1,14 @@
-"""Closed-form quad and plane intersection and the floor's UV mapping, as
-the JAX package's `cpu_ray_tracer_tpu/ops/intersect.py` (the reference's
-template/primitives.h:100-179, :321-375): branchless, masks instead of
-early returns, the same float32 operation order."""
+"""Batched intersection tests, as the JAX package's
+`cpu_ray_tracer_tpu/ops/intersect.py`: Moller-Trumbore and the slab test
+of the reference walks (the reference's infra/bvh.cpp:181-222), the
+closed-form quad and plane and the floor's UV mapping
+(template/primitives.h:100-179, :321-375).  Branchless, masks instead of
+early returns, the same float32 operation order: `dot` and the cross
+products of Moller-Trumbore are the JAX package's `vecmath.dot` (a sum
+over the last axis, left to right) and `jnp.cross` (a1 b2 - a2 b1, ...:
+the lanes rolled by `roll3`), written as one elementwise operation per
+term, so that the card and the CPU round alike (no reduction or fused
+multiply-add whose order a library picks)."""
 
 from __future__ import annotations
 
@@ -12,8 +19,59 @@ from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
 
 _TINY = np.float32(1e-20)
+_TINY_MT = np.float32(1e-30)
 FLOOR_NORMAL = np.array([0.0, 1.0, 0.0], np.float32)
 FLOOR_D = np.float32(1.0)
+
+
+def roll3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., 3] with its lanes rolled by one and by two: (yzx, zxy)."""
+    return x[..., [1, 2, 0]], x[..., [2, 0, 1]]
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a0 b0 + a1 b1) + a2 b2 over the last axis."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def moller_trumbore(o, d, v0, e1, e2, t_max):
+    """Moller-Trumbore of rays o, d [..., 3] against triangles v0, e1, e2
+    [..., 3] (broadcast), with t_max [...] the current nearest t: (t, u,
+    v, hit).  The semantics of infra/bvh.cpp:203-222: |det| < TRI_EPS
+    rejected, u, v in [0, 1], u + v <= 1, TRI_EPS < t < t_max."""
+    return mt_rolled(o, roll3(o), d, roll3(d), v0, roll3(v0), e1, roll3(e1), e2, roll3(e2), t_max)
+
+
+def mt_rolled(o, o_r, d, d_r, v0, v0_r, e1, e1_r, e2, e2_r, t_max):
+    """`moller_trumbore` with each vector's `roll3` given (the walks keep
+    the rays' rolls and the triangles' rolls in their records, so that a
+    test gathers no lanes)."""
+    h = d_r[0] * e2_r[1] - d_r[1] * e2_r[0]  # cross(d, e2)
+    a = dot(e1, h)
+    abs_a = a.abs()
+    f = 1.0 / torch.where(abs_a < _TINY_MT, _TINY_MT, a)
+    s = o - v0
+    u = f * dot(s, h)
+    q = (o_r[0] - v0_r[0]) * e1_r[1] - (o_r[1] - v0_r[1]) * e1_r[0]  # cross(s, e1)
+    v = f * dot(d, q)
+    t = f * dot(e2, q)
+    hit = ((abs_a >= constants.TRI_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+           & (u + v <= 1.0) & (t > constants.TRI_EPS) & (t < t_max))
+    return t, u, v, hit
+
+
+def slab_aabb(o, rd, t_max, bmin, bmax):
+    """Slab test of rays o [..., 3] with reciprocal directions rd against
+    boxes [bmin, bmax] [..., 3]: (tmin, hit), hit iff tmax >= tmin,
+    tmin < t_max and tmax > 0 (the reference's BVH_FASTER_RAY variant,
+    infra/bvh.cpp:181-190).  minimum, maximum, amax and amin propagate
+    NaN in torch as in jnp, and a NaN fails the test."""
+    t1 = (bmin - o) * rd
+    t2 = (bmax - o) * rd
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return tmin, (tmax >= tmin) & (tmin < t_max) & (tmax > 0.0)
 
 
 def _guard(x: torch.Tensor) -> torch.Tensor:

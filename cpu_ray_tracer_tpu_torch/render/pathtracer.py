@@ -32,8 +32,8 @@ so it serves only such scenes (`DeviceScene.stack_kernels`, the JAX
 package's `_kernel_scene_eligible`, render/pathtracer.py:473-500):
 `wavefront_depths=None` takes `WAVEFRONT_DEPTHS` there and the host bounce
 elsewhere (grid, KD tree, a wide-only BVH, hit ids past the meta word, a
-shared-instancing scene, the primitive scene); an explicit k > 0 on such
-a scene raises.
+shared-instancing scene, a scene of the reference walks, the primitive
+scene); an explicit k > 0 on such a scene raises.
 
 The ray state of the host bounce stays in pixel order.  At each depth the
 live rays are gathered, ordered by (direction octant, previous hit: the
@@ -44,6 +44,16 @@ exception: every camera ray is live, and the walk's lanes take them in
 the camera's lane order (`ops/wide_bvh.py` `perm`) without a gather.
 This replaces the JAX package's chunk scans, `lax.cond` skips and tier
 cascade, which exist for XLA's static shapes.
+
+On the reference route (`compile_scene(use_pallas=False)`) the counters
+are the JAX package's: its XLA walks take no mask, so at every depth at
+which a ray still lives it walks the dead rays too and counts their steps
+(in a pass of one compaction chunk, as every pass under 4096 rays is
+there).  A dead ray's origin and direction no longer change, so that
+walk repeats the one in which it died, and its counters are added again
+at each later depth instead of walking it anew; on a shared-instancing
+scene every instance leaves a dead ray out (t0 = -1), and the walk that
+costs is taken once, when the ray dies.
 
 `differentiable=True` (the JAX package's, `sample_radiance` :1189-1410)
 runs every depth through the host bounce, whose hits come from
@@ -165,6 +175,23 @@ def bounce_step(scene, s: dict, depth: int, depth_limit: int, perm=None,
     )
 
 
+def _idle_walks(scene, idle: dict, idx: torch.Tensor, state: dict, out: dict) -> None:
+    """Record in `idle` the counters the JAX package's XLA route adds for
+    each ray of `idx` that died in this bounce (`out`, from `state`) at
+    every later depth: those of the walk it died in, or on a shared scene
+    those of a walk that every instance leaves out of (module
+    docstring)."""
+    died = torch.nonzero(~out["alive"]).squeeze(1)
+    if scene.shared is None:
+        walk = {k: out[k][died] - state[k][idx[died]] for k in idle}
+    else:
+        o, d = out["o"][died], out["d"][died]
+        walk = query.triangle_hit(scene, o, d, torch.full_like(o[:, 0], constants.RAY_FAR),
+                                  mask=torch.zeros_like(died, dtype=torch.bool))
+    for k in idle:
+        idle[k][idx[died]] = walk[k]
+
+
 def initial_state(o, d, seeds) -> dict:
     """Per-ray path state of fresh rays (o, d) [R, 3] with seeds [R]
     (copies: `sample_radiance` updates the state in place)."""
@@ -173,7 +200,7 @@ def initial_state(o, d, seeds) -> dict:
         o=o.clone(),
         d=d.clone(),
         seed=seeds.clone(),
-        throughput=torch.ones((r, 3), dtype=torch.float32, device=dev),
+        throughput=torch.ones((r, 3), dtype=o.dtype, device=dev),
         inside=torch.zeros(r, dtype=torch.bool, device=dev),
         alive=torch.ones(r, dtype=torch.bool, device=dev),
         missed=torch.zeros(r, dtype=torch.bool, device=dev),
@@ -216,11 +243,17 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
         )
     else:
         state = initial_state(o, d, seeds)
+    # the reference route's counters of a walk of each dead ray (module docstring)
+    idle = None if scene.reference is None else dict(
+        traversed=torch.zeros_like(state["traversed"]), tested=torch.zeros_like(state["tested"]))
     for depth in range(first, depth_limit + 1):
         live = torch.nonzero(state["alive"]).squeeze(1)
         rays_traced += live.numel()
         if live.numel() == 0:
             break
+        if idle is not None:
+            for k in idle:
+                state[k] = state[k] + idle[k]
         with torch.profiler.record_function(f"depth_{depth}"):
             if depth == 0 and query.wide_perm(scene, perm) is not None:
                 # every camera ray, in pixel order, to the wide walk's
@@ -231,6 +264,8 @@ def sample_radiance(scene, o, d, seeds, depth_limit: int = constants.DEPTH_LIMIT
             idx = live[locus_order(state["d"][live], state["locus"][live])]
             out = bounce_step(scene, {k: state[k][idx] for k in _STATE}, depth, depth_limit,
                               differentiable=differentiable)
+            if idle is not None:
+                _idle_walks(scene, idle, idx, state, out)
             if differentiable:  # autograd saves tensors that a write in place would change
                 state = {k: state[k].index_copy(0, idx, out[k]) for k in _STATE}
             else:

@@ -28,7 +28,8 @@ The level kernel walks the binary stack tables, so it serves only scenes
 that have them (`DeviceScene.stack_kernels`, the JAX package's
 `_use_kernel_level0`, render/whitted.py:125-138): `level_kernel=None`
 takes it there and the host route elsewhere (grid, KD tree, a wide-only
-BVH, a shared-instancing scene, the primitive scene); an explicit
+BVH, a shared-instancing scene, a scene of the reference walks, the
+primitive scene); an explicit
 `level_kernel=True` on such a scene raises.
 
 The film adds later levels with `index_add_` at the children's pixels; on

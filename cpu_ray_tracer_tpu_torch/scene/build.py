@@ -34,9 +34,22 @@ reference's BLASBVH with its O(1) SetTransform (`scene/types.py`
 SharedInstances, `scene/animate.py`); queries move the rays into each
 instance's object space (`scene/query.py`).
 
+`use_pallas=False` builds the reference route instead (the JAX package's
+XLA traversals, scene/build.py:101-110, :225-302 there): the reference's
+BVH leaves of 2 (`leaf_target` None unless given), the grid or KD tree of
+each instance (one on `mono`) as the builders give them, and the
+reference walks' tables (`scene/types.ReferenceTables`, `accel/
+compile.py`), walked in plain PyTorch by `ops/traverse_bvh.py`,
+`ops/traverse_grid.py`, `ops/traverse_kd.py` and `ops/forest.py` with the
+reference's per-ray counters; no kernel table is built.  None and True
+build the kernels' tables (the port's "auto" takes the kernels on every
+device, where the JAX package's takes them on a TPU only).
+
 `force_split_cap` and the BVH leaf size (`leaf_target`) are the builder's
-(`accel/bvh_builder.py`); `parity=True` sets both to the reference's
-(None, leaves of 2), as the JAX package's parity route does.  Node
+(`accel/bvh_builder.py`; `leaf_target` None: the route's, 24 for the
+kernels and the reference's 2 for the reference walks); `parity=True`
+takes the reference route with the reference's SAH stop
+(`force_split_cap=None`), as the JAX package's parity mode does.  Node
 numbering, builds and the leaf triangle order are the JAX package's, so
 the two packages' tables compare one to one.
 """
@@ -49,6 +62,9 @@ from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.accel import (
     bvh_builder, cell_tree, grid_builder, kdtree_builder, pack, tlas_builder, wide as wide_mod,
 )
+from cpu_ray_tracer_tpu_torch.accel.compile import (
+    bvh_arrays, compile_bvh, make_triangle_pool, shading_records,
+)
 from cpu_ray_tracer_tpu_torch.core import device as device_mod
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
 from cpu_ray_tracer_tpu_torch.core.materials import make_table
@@ -56,7 +72,9 @@ from cpu_ray_tracer_tpu_torch.core.textures import build_atlas
 from cpu_ray_tracer_tpu_torch.io.image import load_texture_image
 from cpu_ray_tracer_tpu_torch.io.obj import load_obj
 from cpu_ray_tracer_tpu_torch.io.scene_xml import load_scene_xml, resolve_asset
-from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, SceneInfo, SharedInstances
+from cpu_ray_tracer_tpu_torch.scene.types import (
+    DeviceScene, ReferenceTables, SceneInfo, SharedInstances,
+)
 
 DEG2RAD = np.float32(np.pi / 180.0)
 LIGHT_SIZE = 0.5  # half-extent of the light's Quad(0, 1) (tlas_file_scene.cpp:15-19)
@@ -76,8 +94,8 @@ def compile_scene(
     xml_path: str | None = None, spec=None, layout: str = "tlas", accel: str = "bvh",
     instancing: str = "baked", parity: bool = False,
     force_split_cap: int | None = bvh_builder.FORCE_SPLIT_CAP, shadow_quirk: bool = True,
-    wide: bool | str = False, bilinear: bool = False,
-    leaf_target: int | None = bvh_builder.LEAF_TARGET, device=device_mod.DEFAULT,
+    wide: bool | str = False, bilinear: bool = False, leaf_target: int | None = None,
+    use_pallas: bool | None = None, device=device_mod.DEFAULT,
 ) -> tuple[DeviceScene, SceneInfo]:
     """Compile an XML scene, or a parsed `spec` (`io/scene_xml.SceneSpec`,
     which `scene/animate.AnimatedScene` edits), to a DeviceScene on
@@ -85,13 +103,23 @@ def compile_scene(
     device the default raises).  `layout` "tlas" or "mono"; `accel` "bvh",
     "grid" or "kdtree"; `instancing` "baked" or "shared" (TLAS layout and
     BVH only, not wide; module docstring); `wide` False, True or "bounce"
-    for "bvh"; `parity` the reference's normals and BVH stops;
-    `force_split_cap` and `leaf_target` the BVH builder's (None: the
-    reference's SAH stop and leaves of 2); `shadow_quirk` as the JAX
-    package's; `bilinear` picks the bilinear texture tap, which carries
-    texel gradients and keeps the scene off the wavefront and Whitted
-    level kernels (`DeviceScene` doc)."""
+    for "bvh" on the kernels' route; `use_pallas` False for the reference
+    walks (module docstring); `parity` the reference's normals and BVH
+    stops on the reference route; `force_split_cap` and `leaf_target` the
+    BVH builder's (None: the reference's SAH stop; the route's leaf size);
+    `shadow_quirk` as the JAX package's; `bilinear` picks the bilinear
+    texture tap, which carries texel gradients and keeps the scene off the
+    wavefront and Whitted level kernels (`DeviceScene` doc)."""
     dev = device_mod.resolve(device)
+    if parity:
+        use_pallas, force_split_cap = False, None  # the reference-exact route
+    reference = use_pallas is False
+    if reference and wide:
+        # the JAX package builds no wide tables for its XLA traversals
+        raise ValueError(f"wide={wide!r} with use_pallas=False: the reference walks take the "
+                         "binary BVH")
+    if leaf_target is None and not reference:
+        leaf_target = bvh_builder.LEAF_TARGET
     if layout not in ("tlas", "mono"):
         raise ValueError(f"layout={layout!r}: expected 'tlas' or 'mono'")
     if instancing not in ("baked", "shared"):
@@ -107,8 +135,6 @@ def compile_scene(
         raise ValueError("instancing='shared' requires layout='tlas' and accel='bvh', "
                          f"and no wide tables (got layout={layout!r}, accel={accel!r}, "
                          f"wide={wide!r})")
-    if parity:
-        force_split_cap = leaf_target = None
     if spec is None:
         spec = load_scene_xml(xml_path)
     xml_dir = spec.xml_dir
@@ -147,20 +173,24 @@ def compile_scene(
         skydome_tex=skydome_tex, shadow_quirk=shadow_quirk, bilinear=bilinear,
     )
     if instancing == "shared":
-        pool, shared, info = _build_shared_instances(spec, force_split_cap, leaf_target)
-        return DeviceScene(packed=None, pool=pool, shared=shared, **lights).to(dev), info
+        pool, shared, ref, info = _build_shared_instances(spec, force_split_cap, leaf_target,
+                                                          reference)
+        return DeviceScene(packed=None, pool=pool, shared=shared, reference=ref,
+                           **lights).to(dev), info
 
     inst_v, inst_n, inst_uv, inst_obj, inst_mat = _instances(spec, layout, parity)
     all_v = np.concatenate(inst_v, axis=0)
     all_n = np.concatenate(inst_n, axis=0)
     all_uv = np.concatenate(inst_uv, axis=0)
+    ids = dict(obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat))
+    if reference:
+        return _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids,
+                                force_split_cap, leaf_target, lights, dev)
 
     v0 = all_v[:, 0]
     e1 = all_v[:, 1] - v0
     e2 = all_v[:, 2] - v0
     shade16 = shading_records(all_v, all_n, all_uv)
-
-    ids = dict(obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat))
     wide_pack = None
     if accel == "bvh":
         if layout == "mono":
@@ -205,19 +235,46 @@ def compile_scene(
     return scene.to(dev), info
 
 
-def shading_records(tri_v: np.ndarray, tri_n: np.ndarray, tri_uv: np.ndarray) -> np.ndarray:
-    """float32 [N, 16]: n0 n1 n2 uv0 uv1 uv2 per triangle, lane 15 zero,
-    with vertex normals of length under 1e-8 replaced by the geometric
-    normal (the JAX package's `make_triangle_pool`)."""
-    v0 = tri_v[:, 0]
-    gn = np.cross(tri_v[:, 1] - v0, tri_v[:, 2] - v0)
-    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
-    bad = np.linalg.norm(tri_n, axis=-1) < 1e-8
-    tri_n = np.where(bad[..., None], gn[:, None, :], tri_n)
-    shade16 = np.zeros((tri_v.shape[0], 16), np.float32)
-    shade16[:, 0:9] = tri_n.reshape(-1, 9)
-    shade16[:, 9:15] = tri_uv.reshape(-1, 6)
-    return shade16
+def _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids,
+                     force_split_cap, leaf_target, lights, dev):
+    """The reference route's scene (`use_pallas=False`; module
+    docstring): the triangle pool and the walked structures, with
+    global triangle ids; the build statistics as the kernels' route
+    reports them."""
+    tris = make_triangle_pool(all_v, all_n, all_uv, ids["obj_id"], ids["mat_id"], device="cpu")
+    blas_stats = []
+    if accel == "bvh":
+        if layout == "mono":
+            bvh, build_stats = compile_bvh(all_v, force_split_cap, leaf_target, device="cpu")
+        else:
+            host, build_stats, blas_stats = _build_unified_tlas(inst_v, force_split_cap,
+                                                                leaf_target)
+            bvh = bvh_arrays(host, build_stats, "cpu")
+        structs = [bvh]
+        num_nodes, depth = structs[0].num_nodes, build_stats.max_depth
+    else:
+        builder = grid_builder if accel == "grid" else kdtree_builder
+        ids_key = "cell_tris" if accel == "grid" else "tri_ids"
+        structs, tri_base = [], 0
+        for v in [all_v] if layout == "mono" else inst_v:
+            host, st = (builder.build_grid if accel == "grid" else builder.build_kdtree)(v)
+            host[ids_key] = host[ids_key] + tri_base
+            structs.append(builder.to_device(host, "cpu"))
+            blas_stats.append(st)
+            tri_base += v.shape[0]
+        num_nodes = sum(int(s.cell_start.shape[0] - 1 if accel == "grid" else s.num_nodes)
+                        for s in structs)
+        depth = max(st.max_depth for st in blas_stats)
+        # mono: the one structure's build; tlas: no BVH over the instances
+        build_stats = blas_stats.pop() if layout == "mono" else bvh_builder.BuildStats()
+    v0 = all_v[:, 0]
+    scene = DeviceScene(packed=None, pool=np.concatenate([v0, all_v[:, 1] - v0, all_v[:, 2] - v0],
+                                                         axis=1),
+                        reference=ReferenceTables(tris, accel, structs), **lights)
+    info = SceneInfo(name=spec.name, triangle_count=int(all_v.shape[0]),
+                     object_count=len(spec.objects), num_nodes=num_nodes, tree_depth=depth,
+                     build_stats=build_stats, blas_stats=blas_stats)
+    return scene.to(dev), info
 
 
 def instance_matrices(obj) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -256,29 +313,38 @@ def instance_tables(spec, inst_mesh, mesh_bounds) -> dict:
     return out
 
 
-def _build_shared_instances(spec, force_split_cap, leaf_target):
+def _build_shared_instances(spec, force_split_cap, leaf_target, reference: bool = False):
     """One object-space BVH per unique mesh (by model path, in order of
     first use) and the instance tables, as the JAX package's
     `_build_shared_instances` (scene/build.py:477-598).  The pool holds
     each unique mesh once; each mesh's tables carry pool-global triangle
     ids in their meta words, and a placeholder object (the mesh's index)
-    and material 0 that the query replaces by the instance's.  Returns
-    (pool [N, 9], SharedInstances, SceneInfo counting every instance's
-    triangles)."""
+    and material 0 that the query replaces by the instance's.  With
+    `reference` each mesh gets its reference `BVHArrays` instead of
+    kernel tables, and the pool a `TrianglePool` (`ReferenceTables`).
+    Returns (pool [N, 9], SharedInstances, ReferenceTables or None,
+    SceneInfo counting every instance's triangles)."""
     mesh_of = {}
     inst_mesh = [mesh_of.setdefault(obj.model_location, len(mesh_of)) for obj in spec.objects]
     meshes = [load_obj(resolve_asset(loc, spec.xml_dir)).triangles() for loc in mesh_of]
     all_v = np.concatenate([v for v, _, _ in meshes]).astype(np.float32)
-    shade16 = shading_records(all_v, np.concatenate([n for _, n, _ in meshes]).astype(np.float32),
-                              np.concatenate([uv for _, _, uv in meshes]).astype(np.float32))
+    all_n = np.concatenate([n for _, n, _ in meshes]).astype(np.float32)
+    all_uv = np.concatenate([uv for _, _, uv in meshes]).astype(np.float32)
+    shade16 = shading_records(all_v, all_n, all_uv)
     pool_obj = np.concatenate([np.full(v.shape[0], s, np.int32) for s, (v, _, _) in enumerate(meshes)])
     pool_mat = np.zeros(all_v.shape[0], np.int32)
     packs, stats, bounds, tri_base = [], [], [], 0
     for v, _, _ in meshes:
         host, idx, st = bvh_builder.build_bvh(v.astype(np.float32), force_split_cap, leaf_target)
-        packs.append(pack.pack_bvh(
-            host.node_min, host.node_max, host.left, host.right, host.axis, host.left_first,
-            host.tri_count, idx + tri_base, all_v, shade16, pool_obj, pool_mat, root=0))
+        if reference:
+            packs.append(bvh_arrays(dict(
+                node_min=host.node_min, node_max=host.node_max, left=host.left, right=host.right,
+                axis=host.axis, left_first=host.left_first, tri_count=host.tri_count,
+                tri_indices=idx + tri_base, root=0), st, "cpu"))
+        else:
+            packs.append(pack.pack_bvh(
+                host.node_min, host.node_max, host.left, host.right, host.axis, host.left_first,
+                host.tri_count, idx + tri_base, all_v, shade16, pool_obj, pool_mat, root=0))
         stats.append(st)
         bounds.append((tuple(float(x) for x in host.node_min[0]),
                        tuple(float(x) for x in host.node_max[0])))
@@ -289,16 +355,20 @@ def _build_shared_instances(spec, force_split_cap, leaf_target):
         inst_mat=np.array([2 + obj.material_idx for obj in spec.objects], np.int32),
         inst_mesh=inst_mesh, mesh_bounds=bounds)
     v0 = all_v[:, 0]
+    ref = None
+    if reference:
+        ref = ReferenceTables(make_triangle_pool(all_v, all_n, all_uv, pool_obj, pool_mat,
+                                                 device="cpu"), "bvh", [])
     info = SceneInfo(
         name=spec.name,
         triangle_count=sum(meshes[s][0].shape[0] for s in inst_mesh),
         object_count=len(spec.objects),
-        num_nodes=sum(p.nodes.shape[0] for p in packs),
-        tree_depth=max(p.depth for p in packs),
+        num_nodes=sum(p.num_nodes if reference else p.nodes.shape[0] for p in packs),
+        tree_depth=max(st.max_depth if reference else p.depth for p, st in zip(packs, stats)),
         build_stats=stats[0],
         blas_stats=stats[1:],
     )
-    return np.concatenate([v0, all_v[:, 1] - v0, all_v[:, 2] - v0], axis=1), shared, info
+    return np.concatenate([v0, all_v[:, 1] - v0, all_v[:, 2] - v0], axis=1), shared, ref, info
 
 
 def _instances(spec, layout: str = "tlas", parity: bool = False):

@@ -43,6 +43,22 @@ the `packed.*` keys:
 and `meta` holds `inst_mesh`, `mesh_bounds` and per mesh its
 `stack_depth` in `mesh_depths`.
 
+A scene of the JAX package's XLA route (`use_pallas=False`) becomes a
+scene of the port's reference route (`scene/types.ReferenceTables`):
+`meta["reference"]` holds its `accel` and, per walked structure i, the
+static fields in `structs[i]` (a BVH's `max_leaf`, `max_depth`, `root`; a
+grid's `resolution`, `max_cell_len`; a KD tree's `max_depth`,
+`max_leaf`), and the arrays hold that structure's fields under
+`ref.{i}.` (`node_min`, `node_max`, `left_first`, `tri_count`,
+`hit_link` [8, M], `miss_link`, `tri_indices`; `bounds_min`,
+`bounds_max`, `cell_start`, `cell_tris`; `split_axis`, `split_dist`,
+`left`, `right`, `first`, `count`, `tri_ids`, `bounds_min`,
+`bounds_max`): the fused BVH, or the grids or KD trees in chain order
+(one on the mono layout), or on a shared-instancing scene each unique
+mesh's BVH (`shared.bvhs` there), whose instance tables are the
+`shared.*` keys above.  The pool is `tris.v0`, `.e1`, `.e2`, `.obj_id`,
+`.mat_id` and `tris.shade` [N, 16].
+
 `prim_scene_from_arrays` carries a JAX `PrimScene`: its geometry fields
 under their own names (`light_t`, `sphere_pos`, `cube_m`, `plane_n`,
 `torus_inv_t`, ...) and the atlas under `atlas.*`.
@@ -62,10 +78,11 @@ import numpy as np
 import torch
 
 from cpu_ray_tracer_tpu_torch.accel import pack
+from cpu_ray_tracer_tpu_torch.accel.types import BVHArrays, GridArrays, KDTreeArrays, TrianglePool
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
 from cpu_ray_tracer_tpu_torch.scene import primitive_scene
-from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, SharedInstances
+from cpu_ray_tracer_tpu_torch.scene.types import DeviceScene, ReferenceTables, SharedInstances
 
 _SLOTS_PER_ROW = 8  # the JAX packing's triangles per 128-lane row
 _SLOT_F = 16  # floats per triangle record
@@ -136,10 +153,48 @@ def _pool(a: dict) -> np.ndarray:
     return np.concatenate([a["tris.v0"], a["tris.e1"], a["tris.e2"]], axis=1)
 
 
+REF_KEYS = dict(
+    bvh=("node_min", "node_max", "left_first", "tri_count", "hit_link", "miss_link",
+         "tri_indices"),
+    grid=("bounds_min", "bounds_max", "cell_start", "cell_tris"),
+    kdtree=("split_axis", "split_dist", "left", "right", "first", "count", "tri_ids",
+            "bounds_min", "bounds_max"),
+)
+
+
+def reference_tables(a: dict, ref: dict) -> ReferenceTables:
+    """The `ReferenceTables` of arrays `a` and `meta["reference"]` (module
+    docstring): the pool and the walked structures."""
+    return ReferenceTables(_reference_pool(a), ref["accel"], _reference_structs(a, ref))
+
+
+def _reference_structs(a: dict, ref: dict) -> list:
+    """The walked structures of `meta["reference"]` (module docstring)."""
+    accel, out = ref["accel"], []
+    for i, static in enumerate(ref["structs"]):
+        x = [a[f"ref.{i}.{k}"] for k in REF_KEYS[accel]]
+        if accel == "bvh":
+            out.append(BVHArrays(*x, **static))
+        elif accel == "grid":
+            out.append(GridArrays(x[0], x[1], static["resolution"], x[2], x[3],
+                                  static["max_cell_len"]))
+        else:
+            out.append(KDTreeArrays(*x, **static))
+    return out
+
+
+def _reference_pool(a: dict) -> TrianglePool:
+    return TrianglePool(a["tris.v0"], a["tris.e1"], a["tris.e2"], a["tris.obj_id"],
+                        a["tris.mat_id"], a["tris.shade"])
+
+
 def scene_from_arrays(arrays: dict, meta: dict) -> DeviceScene:
     a = arrays
     if "shared.inst_minv" in a:
         return _shared_scene(a, meta)
+    if "reference" in meta:
+        return DeviceScene(packed=None, pool=_pool(a), reference=reference_tables(
+            a, meta["reference"]), **_common(a, meta))
     shade_rows = np.asarray(a["packed.tri_shade_rows"], np.float32).reshape(-1, _SLOT_F)
     # a real triangle's lane 15 is its meta word, whose obj >= 2 sets bits
     # 20-25, or its material id >= 2 as a float; padding slots are all-zero
@@ -159,22 +214,28 @@ def _shared_scene(a: dict, meta: dict) -> DeviceScene:
     """A shared-instancing scene (module docstring): each mesh's pack with
     the pool's shading records and meta words (pool-global triangle id,
     the placeholder object and material) in slot order."""
-    obj_id, mat_id = np.asarray(a["tris.obj_id"]), np.asarray(a["tris.mat_id"])
-    shade = np.asarray(a["tris.shade"], np.float32).copy()
-    shade.view(np.int32)[:, 15] = pack.meta_words(obj_id, mat_id)
-    packs = []
-    for s, depth in enumerate(meta["mesh_depths"]):
-        slot_tri = np.asarray(a[f"shared.packs.{s}.slot_tri"], np.int64)
-        real = slot_tri >= 0
-        packs.append(_packed_from_rows(a, f"shared.packs.{s}.", real, shade[slot_tri[real]], 0,
-                                       depth))
+    ref = None
+    if "reference" in meta:
+        ref = ReferenceTables(_reference_pool(a), "bvh", [])
+        packs = _reference_structs(a, meta["reference"])
+    else:
+        obj_id, mat_id = np.asarray(a["tris.obj_id"]), np.asarray(a["tris.mat_id"])
+        shade = np.asarray(a["tris.shade"], np.float32).copy()
+        shade.view(np.int32)[:, 15] = pack.meta_words(obj_id, mat_id)
+        packs = []
+        for s, depth in enumerate(meta["mesh_depths"]):
+            slot_tri = np.asarray(a[f"shared.packs.{s}.slot_tri"], np.int64)
+            real = slot_tri >= 0
+            packs.append(_packed_from_rows(a, f"shared.packs.{s}.", real,
+                                           shade[slot_tri[real]], 0, depth))
     shared = SharedInstances(
         packs, **{k: a[f"shared.{k}"] for k in ("inst_minv", "inst_nrm", "inst_aabb_min",
                                                 "inst_aabb_max")},
         inst_obj=np.asarray(a["shared.inst_obj"], np.int32),
         inst_mat=np.asarray(a["shared.inst_mat"], np.int32),
         inst_mesh=meta["inst_mesh"], mesh_bounds=meta["mesh_bounds"])
-    return DeviceScene(packed=None, pool=_pool(a), shared=shared, **_common(a, meta))
+    return DeviceScene(packed=None, pool=_pool(a), shared=shared, reference=ref,
+                       **_common(a, meta))
 
 
 def prim_scene_from_arrays(arrays: dict) -> primitive_scene.PrimScene:

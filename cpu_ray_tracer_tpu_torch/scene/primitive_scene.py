@@ -97,6 +97,7 @@ class PrimScene(nn.Module):
 
     walk = "analytic"
     stack_kernels = False
+    reference = None  # the closed forms answer every query: no reference walk
     skydome_tex = -1
 
     def __init__(self, arrays: dict, atlas):

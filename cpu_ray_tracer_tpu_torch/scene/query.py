@@ -8,6 +8,13 @@ walk of the grid and KD cell forests, or the wide walk; on a
 shared-instancing scene ("instanced") one masked pass of the stack walk
 (or of the link walk, for a mesh deeper than its stack) per instance, in
 the instance's object space (`_instanced`, scene/query.py:24-87 there).
+A scene of the reference route (`use_pallas=False`) takes the reference
+walks instead (`DeviceScene.reference`), with the JAX package's XLA
+semantics: the walk takes no mask (masked-off rays are walked and
+counted, their hits reported), and a shared scene's pass of an instance
+starts the rays it leaves out at t0 = -1, where they still take a counted
+step (scene/query.py:64-70, :106-139 there).  A hit's `slot` is its
+triangle id there.
 The kernels take detached rays: visibility carries no gradient, and
 `find_nearest_diff` recomputes the winner's t and barycentrics with
 autograd.  The reference's analytic primitive scene
@@ -23,7 +30,7 @@ import torch
 from cpu_ray_tracer_tpu_torch import constants
 from cpu_ray_tracer_tpu_torch.core import textures as tex_mod
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
-from cpu_ray_tracer_tpu_torch.ops import intersect
+from cpu_ray_tracer_tpu_torch.ops import intersect, traverse_bvh
 from cpu_ray_tracer_tpu_torch.ops.closest_hit import closest_hit, occluded
 from cpu_ray_tracer_tpu_torch.ops.link_walk import closest_hit_links, occluded_links
 from cpu_ray_tracer_tpu_torch.ops.wide_bvh import closest_hit_wide, occluded_wide
@@ -49,6 +56,9 @@ def triangle_hit(scene, o, d, t0, mask=None, perm=None) -> dict:
     _no_perm(scene, perm)
     if scene.walk == "instanced":
         return _instanced(scene, o, d, t0, mask, any_hit=False)
+    if scene.walk == "reference":
+        res = scene.reference.walk(o, d, t0, any_hit=False)
+        return dict(res, slot=res["tri_idx"])
     if scene.walk == "links":
         return closest_hit_links(scene, o, d, t0, mask)
     return closest_hit(scene, o, d, t0, mask)
@@ -62,6 +72,8 @@ def triangle_occluded(scene, o, d, t0, mask=None, perm=None) -> torch.Tensor:
     _no_perm(scene, perm)
     if scene.walk == "instanced":
         return _instanced(scene, o, d, t0, mask, any_hit=True)
+    if scene.walk == "reference":
+        return scene.reference.walk(o, d, t0, any_hit=True)["tri_idx"] >= 0
     if scene.walk == "links":
         return occluded_links(scene, o, d, t0, mask)
     return occluded(scene, o, d, t0, mask)
@@ -96,7 +108,9 @@ def _instanced(scene, o, d, t0, mask, any_hit: bool):
     tables from that best t.  Closest hit: the walks' dict with the hit's
     object and material from the instance table and its slot in the
     scene's `shade`; any hit: bool [R], the instances ORed, each pass
-    skipping the rays already occluded."""
+    skipping the rays already occluded.  On the reference route a pass
+    walks every ray, those it leaves out from t0 = -1 (module
+    docstring)."""
     sh = scene.shared
     r, dev = o.shape[0], o.device
     live_in = torch.ones(r, dtype=torch.bool, device=dev) if mask is None else mask
@@ -118,12 +132,21 @@ def _instanced(scene, o, d, t0, mask, any_hit: bool):
         tn = torch.amax(torch.minimum(t1, t2), dim=-1)
         tf = torch.amin(torch.maximum(t1, t2), dim=-1)
         live = live_in & (tf >= tn) & (tf > 0.0)
-        if any_hit:
-            # a ray not occluded yet still has t0 as its best t
-            occ = occ | triangle_occluded(mesh, o_i, d_i, t0, live & (tn < t0) & ~occ)
+        # a ray not occluded yet still has t0 as its best t
+        best = t0 if any_hit else out["t"]
+        live = live & (tn < best) & ~occ
+        if scene.reference is not None:
+            res = traverse_bvh.traverse(mesh, scene.reference.tris, o_i, d_i,
+                                        torch.where(live, best, np.float32(-1.0)), any_hit)
+            res["slot"] = res["tri_idx"]
+            if any_hit:
+                occ = occ | (res["tri_idx"] >= 0)
+                continue
+        elif any_hit:
+            occ = occ | triangle_occluded(mesh, o_i, d_i, t0, live)
             continue
-        best = out["t"]
-        res = triangle_hit(mesh, o_i, d_i, best, live & (tn < best))
+        else:
+            res = triangle_hit(mesh, o_i, d_i, best, live)
         hit = res["slot"] >= 0
         hit_ids = dict(slot=res["slot"] + sh.slot_base[m], tri_idx=res["tri_idx"],
                        obj_id=sh.inst_obj[i].expand(r), mat_id=sh.inst_mat[i].expand(r))
@@ -245,14 +268,7 @@ def get_hit_info(scene, hit: dict, point: torch.Tensor, d: torch.Tensor):
         return prim.get_hit_info(scene, hit, point, d)
     obj = hit["obj_idx"]
     tri_hit = (hit["tri_idx"] >= 0)[:, None]
-    rec = scene.shade[hit["slot"].clamp_min(0).long()]
-    bu = hit["u"][:, None]
-    bv = hit["v"][:, None]
-    w = (1.0 - hit["u"] - hit["v"])[:, None]
-    n_tri = w * rec[:, 0:3] + bu * rec[:, 3:6] + bv * rec[:, 6:9]
-    uv_tri = w * rec[:, 9:11] + bu * rec[:, 11:13] + bv * rec[:, 13:15]
-    sq = (n_tri * n_tri).sum(dim=-1, keepdim=True)
-    n_tri = n_tri * torch.rsqrt(torch.clamp_min(sq, np.float32(1e-20)))
+    n_tri, uv_tri = traverse_bvh.interpolate_hit(scene.shade, hit["slot"], hit["u"], hit["v"])
     if scene.shared is not None:
         n_w = _affine(n_tri, scene.shared.inst_nrm[_instance_of(scene, obj)], False)
         n_w = n_w / torch.clamp_min(torch.linalg.vector_norm(n_w, dim=-1, keepdim=True),

@@ -22,12 +22,18 @@ for the TLAS-baked layout, over any of its accelerators.  Fields:
   `wide_nodes` with the boxes field-major, for 16-byte loads;
   `accel/wide.py`); `tris4` float32 [S, 12] (`tris` with v0, e1, e2
   padded to 16 bytes each);
-* `walk`: which kernel answers the scene's closest-hit and any-hit
+* `walk`: which walk answers the scene's closest-hit and any-hit
   queries: "stack" (the binary walk, `ops/closest_hit.py`), "links" (the
   grid and KD cell forests and a BVH too deep for the stack,
-  `ops/link_walk.py`), "wide" (`ops/wide_bvh.py`) or "instanced" (a
-  shared-instancing scene: one walk per instance over its mesh's tables,
-  `scene/query.py`);
+  `ops/link_walk.py`), "wide" (`ops/wide_bvh.py`), "reference" (the
+  reference walks of `use_pallas=False`, plain PyTorch: `reference`) or
+  "instanced" (a shared-instancing scene: one walk per instance over its
+  mesh's tables, `scene/query.py`);
+* `reference`: the reference walks' tables (`ReferenceTables`), else
+  None.  Such a scene has no kernel tables: `shade` holds the pool's
+  shading records by pool id (a hit's `slot` is its triangle id), and
+  `stack_kernels` is False (the JAX package's `_kernel_scene_eligible`
+  turns its `use_pallas=False` scenes away as well);
 * `shared`: a shared-instancing scene's `SharedInstances`, else None.
   Such a scene has no walk fields of its own: `shade` holds its meshes'
   shading records one after another, `pool` the unique meshes'
@@ -76,11 +82,12 @@ import torch
 from torch import nn
 
 from cpu_ray_tracer_tpu_torch.accel.bvh_builder import BuildStats
+from cpu_ray_tracer_tpu_torch.accel.types import BVHArrays, TrianglePool
 from cpu_ray_tracer_tpu_torch.accel.pack import N_COUNT, PackedBVH
 from cpu_ray_tracer_tpu_torch.accel.wide import PackedWide
 from cpu_ray_tracer_tpu_torch.core.materials import MaterialTable
 from cpu_ray_tracer_tpu_torch.core.textures import Atlas
-from cpu_ray_tracer_tpu_torch.ops import surface
+from cpu_ray_tracer_tpu_torch.ops import forest, surface, traverse_bvh, traverse_grid, traverse_kd
 
 
 @dataclasses.dataclass
@@ -175,6 +182,32 @@ class MeshTables(nn.Module):
         return self.tris4.device
 
 
+class ReferenceTables(nn.Module):
+    """The tables of the reference walks (`compile_scene(use_pallas=
+    False)`, the JAX package's XLA route): `tris`, the `TrianglePool`;
+    `accel` "bvh", "grid" or "kdtree"; `structs`, a ModuleList of the
+    walked structures: one `BVHArrays` (the fused TLAS forest, or the
+    mono tree), or one `GridArrays` / `KDTreeArrays` per instance on the
+    TLAS layout (global triangle ids; the walk chains them,
+    `ops/forest.py`) and one on the mono layout.  A shared-instancing
+    scene keeps its meshes' BVHs in `SharedInstances` and none here."""
+
+    def __init__(self, tris: TrianglePool, accel: str, structs: list):
+        super().__init__()
+        self.tris = tris
+        self.accel = accel
+        self.structs = nn.ModuleList(structs)
+
+    def walk(self, o: torch.Tensor, d: torch.Tensor, t0: torch.Tensor, any_hit: bool) -> dict:
+        """The reference walk's hit dict (`ops/traverse_bvh.py`) of rays o, d
+        from t0 (the JAX package's `_traverse_accel`, scene/query.py:106-139
+        there)."""
+        if self.accel == "bvh":
+            return traverse_bvh.traverse(self.structs[0], self.tris, o, d, t0, any_hit)
+        fn = traverse_grid.traverse if self.accel == "grid" else traverse_kd.traverse
+        return forest.traverse_forest(fn, self.structs, self.tris, o, d, t0, any_hit)
+
+
 class SharedInstances(nn.Module):
     """Object-space shared-BLAS instancing tables (`instancing="shared"`),
     as the JAX package's `SharedInstances` (scene/types.py:22-70 there):
@@ -200,19 +233,26 @@ class SharedInstances(nn.Module):
     change needs to recompute the world boxes), `slot_base` each mesh's
     first slot in the scene's concatenated `shade` table.
 
+    On the reference route (`use_pallas=False`) `meshes` holds each mesh's
+    reference `BVHArrays` (pool-global triangle ids), walked by
+    `ops/traverse_bvh.py` over the scene's `reference.tris`; a hit's slot
+    is then its pool id (`slot_base` all 0).
+
     A known, bounded difference from the baked forest, kept from the JAX
     package: Moller-Trumbore runs in unscaled object space, where a
     grazing sliver's determinant is about s^3 larger than in world space,
     so a world |det| just under TRI_EPS can be accepted here
     (tests/test_instancing.py::test_bench_scale_multi_mesh there)."""
 
-    def __init__(self, meshes: list[PackedBVH], inst_minv, inst_nrm, inst_aabb_min,
+    def __init__(self, meshes: list, inst_minv, inst_nrm, inst_aabb_min,
                  inst_aabb_max, inst_obj, inst_mat, inst_mesh, mesh_bounds):
         super().__init__()
-        self.meshes = nn.ModuleList(MeshTables(p) for p in meshes)
+        reference = isinstance(meshes[0], BVHArrays)
+        self.meshes = nn.ModuleList(meshes if reference else [MeshTables(p) for p in meshes])
         self.inst_mesh = tuple(int(m) for m in inst_mesh)
         self.mesh_bounds = tuple(mesh_bounds)
-        self.slot_base = tuple(int(x) for x in np.cumsum([0] + [p.tris.shape[0] for p in meshes])[:-1])
+        sizes = [0 if reference else p.tris.shape[0] for p in meshes]
+        self.slot_base = tuple(int(x) for x in np.cumsum([0] + sizes)[:-1])
         self.set_transforms(inst_minv, inst_nrm, inst_aabb_min, inst_aabb_max)
         _buffer(self, "inst_obj", inst_obj, np.int32)
         _buffer(self, "inst_mat", inst_mat, np.int32)
@@ -252,6 +292,7 @@ class DeviceScene(nn.Module):
         wide_bounce: bool = False,
         bilinear: bool = False,
         shared: SharedInstances | None = None,
+        reference: ReferenceTables | None = None,
     ):
         super().__init__()
 
@@ -260,12 +301,18 @@ class DeviceScene(nn.Module):
 
         buf("pool", pool, np.float32)
         self.shared = shared
-        if shared is None:
+        self.reference = reference
+        if reference is not None:
+            # the pool's shading records: a hit's slot is its pool id
+            buf("shade", reference.tris.shade.numpy(), np.float32)
+            self.walk = "reference"
+        elif shared is None:
             register_walk(self, packed)
         else:
             # the meshes' shading records one after another: a hit's slot
             # plus its mesh's `slot_base` indexes them
             buf("shade", np.concatenate([m.shade.numpy() for m in shared.meshes]), np.float32)
+        if shared is not None:
             self.walk = "instanced"
         buf("wide_nodes", None if wide is None else wide.nodes, np.int32)
         buf("wide_roots", None if wide is None else wide.roots, np.int32)
@@ -274,7 +321,7 @@ class DeviceScene(nn.Module):
         if wide is not None:
             self.walk = "wide"
         self.bilinear = bool(bilinear)
-        self.stack_kernels = (shared is None and not packed.cell_forest
+        self.stack_kernels = (shared is None and reference is None and not packed.cell_forest
                               and packed.slot_ids is None and (wide is None or wide_bounce)
                               and not self.bilinear)
 

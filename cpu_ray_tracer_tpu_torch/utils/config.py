@@ -5,10 +5,11 @@ fields, defaults and flag parsing (every field is a flag: `--scene-xml`,
 plus `device`, the device the port renders on (the card unless the caller
 asks for another).
 
-Fields for what the port has not ported yet raise where they would take
-effect: `use_pallas="false"` (the JAX package's XLA traversals, ROADMAP
-item 12) in `build_scene`, `sharded` (item 14) in the CLI.  The port
-runs its kernels for "auto" and "true" (their plain versions on the CPU).
+`use_pallas` maps as the JAX package's: "false" builds the reference
+walks (`compile_scene(use_pallas=False)`, plain PyTorch on the device),
+"true" and "auto" the kernels (their plain versions on the CPU; the JAX
+package's "auto" takes the kernels on a TPU only).  `sharded` (ROADMAP
+item 14) raises in the CLI: it is not ported yet.
 `whitted_cap_factor` and `whitted_grow_cap` are accepted and change
 nothing: the port's Whitted tracer gathers children exactly and drops
 none.  `passes_per_step` and `n_devices` are accepted and unused, as in
@@ -31,7 +32,7 @@ class RenderConfig:
     accel: str = "bvh"  # "bvh" | "grid" | "kdtree"
     instancing: str = "baked"  # "baked" | "shared" (one BVH per unique mesh)
     parity: bool = False  # the reference's normals quirk and BVH stops
-    use_pallas: str = "auto"  # "auto" | "true" (the kernels) | "false" (not ported)
+    use_pallas: str = "auto"  # "auto" | "true" (the kernels) | "false" (the reference walks)
     shadow_quirk: bool = True
     bilinear: bool = False
     force_split_cap: int | None = 4  # None = reference SAH stopping exactly
@@ -62,10 +63,6 @@ class RenderConfig:
     def build_scene(self):
         from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
 
-        if self.use_pallas not in ("auto", "true"):
-            raise NotImplementedError(
-                f"use_pallas={self.use_pallas!r}: the XLA traversals are not ported "
-                "(ROADMAP queue 1, item 12); 'auto' and 'true' run the kernels")
         return compile_scene(
             self.scene_xml,
             layout=self.layout,
@@ -75,6 +72,7 @@ class RenderConfig:
             force_split_cap=self.force_split_cap,
             shadow_quirk=self.shadow_quirk,
             bilinear=self.bilinear,
+            use_pallas=None if self.use_pallas == "auto" else self.use_pallas == "true",
             device=self.device,
         )
 

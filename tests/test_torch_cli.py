@@ -12,7 +12,17 @@ on the CPU (`--device cpu`, the kernels' plain versions).
   to ties.
 * `--instancing shared` (one BVH per unique mesh) against the JAX CLI on
   the same argv, under the same rule.
-* Each flag for what the port does not run raises NotImplementedError
+* `--use-pallas false` (the reference walks) against the JAX CLI on the
+  same argv, for both scenes and both integrators on the BVH and for the
+  grid and KD forests: the same rule for the PNGs, and the JSONL's
+  traversal and test totals, means and peaks equal, record by record.
+  Where a record's differ, every ray whose counters differ between the
+  packages' renders of that frame must be fp-borderline in a float64
+  evaluation (`torch_rays.counter_borderline`): on `cube_scene` the
+  triangles lie in their leaves' box faces, so a leaf's slab test against
+  the ray's best t is a tie that rounding decides.  The test prints how
+  many such rays there are.
+* `--sharded`, which the port does not run, raises NotImplementedError
   naming its ROADMAP item.
 """
 
@@ -108,7 +118,8 @@ def _port_radiance(argv, kind):
     """(radiance(o, d, seeds), (o, d, seeds)) of the frame the argv renders,
     through the port on the CPU."""
     kwargs = dict(layout=_option(argv, "--layout", "tlas"), accel=_option(argv, "--accel", "bvh"),
-                  instancing=_option(argv, "--instancing", "baked"))
+                  instancing=_option(argv, "--instancing", "baked"),
+                  use_pallas=False if _option(argv, "--use-pallas", "auto") == "false" else None)
     scene, _ = compile_scene(_option(argv, "--scene-xml", None), device="cpu", **kwargs)
     cam = dict(pos=(0.0, 0.0, -2.0), target=(0.0, 0.0, -1.0))
     if "--cam-pos" in argv:
@@ -137,7 +148,88 @@ def test_shared_instancing_matches_jax_cli(tmp_path):
                                 "--instancing", "shared", *BENCH_CAM], "whitted")
 
 
+REFERENCE = ["--use-pallas", "false"]
+REFERENCE_CASES = {
+    "pathtracer-cube": (["--scene-xml", CUBE_XML, "--integrator", "pathtracer", "--spp", "2"],
+                        "pathtracer"),
+    "whitted-cube": (["--scene-xml", CUBE_XML, "--integrator", "whitted"], "whitted"),
+    "pathtracer-bunny": (["--scene-xml", BENCH_XML, "--integrator", "pathtracer", "--spp", "1",
+                          *BENCH_CAM], "pathtracer"),
+    "whitted-bunny": (["--scene-xml", BENCH_XML, "--integrator", "whitted", *BENCH_CAM],
+                      "whitted"),
+    "whitted-bunny-grid": (["--scene-xml", BENCH_XML, "--integrator", "whitted", "--accel",
+                            "grid", *BENCH_CAM], "whitted"),
+    "pathtracer-bunny-mono-kdtree": (["--scene-xml", BENCH_XML, "--integrator", "pathtracer",
+                                      "--spp", "1", "--layout", "mono", "--accel", "kdtree",
+                                      *BENCH_CAM], "pathtracer"),
+}
+COUNTERS = ("total_traversal", "average_traversal", "peak_traversal", "total_tests",
+            "average_tests", "peak_tests")
+
+
+@pytest.mark.parametrize("case", list(REFERENCE_CASES))
+def test_reference_walks_match_jax_cli(tmp_path, case):
+    """`--use-pallas false`: the reference walks, counters and all."""
+    argv, kind = REFERENCE_CASES[case]
+    ours, theirs = _matches_jax_cli(tmp_path, argv + REFERENCE, kind)
+    assert all(r["total_traversal"] > 0 and r["total_tests"] > 0 for r in ours)
+    for i, (a, b) in enumerate(zip(ours, theirs)):
+        if {k: a[k] for k in COUNTERS} != {k: b[k] for k in COUNTERS}:
+            n = _borderline_counter_rays(argv + REFERENCE, kind, i, a)
+            print(f"{case} record {i}: {n} fp-borderline rays with other counters")
+
+
+def _borderline_counter_rays(argv, kind, spp_index, record) -> int:
+    """The rays whose counters differ between the packages' renders of the
+    frame behind JSONL record `spp_index` (a path-tracer pass, or the
+    Whitted frame's primary rays): assert that each is fp-borderline and
+    that the port's render gives the record; return their count."""
+    from cpu_ray_tracer_tpu.core import camera as jax_cam
+    from cpu_ray_tracer_tpu.render import pathtracer as jax_pt
+    from cpu_ray_tracer_tpu.render import whitted as jax_whitted
+    from cpu_ray_tracer_tpu_torch.utils import metrics
+    from torch_parity import jax_compile_reference, jax_reference_env
+    from torch_rays import counter_borderline
+
+    argv = argv + ["--width", str(W), "--height", str(H)]
+    kwargs = dict(layout=_option(argv, "--layout", "tlas"), accel=_option(argv, "--accel", "bvh"))
+    scene, _ = compile_scene(_option(argv, "--scene-xml", None), use_pallas=False, device="cpu",
+                             **kwargs)
+    jax_scene, _ = jax_compile_reference(_option(argv, "--scene-xml", None), **kwargs)
+    cam = dict(pos=(0.0, 0.0, -2.0), target=(0.0, 0.0, -1.0))
+    if "--cam-pos" in argv:
+        cam = dict(pos=tuple(float(x) for x in _option(argv, "--cam-pos", "").split(",")),
+                   target=tuple(float(x) for x in _option(argv, "--cam-target", "").split(",")))
+    camera, jcamera = cam_mod.make_camera(W, H, **cam), jax_cam.make_camera(W, H, **cam)
+    with pytest.MonkeyPatch.context() as mp:
+        jax_reference_env(mp)
+        if kind == "pathtracer":
+            _, st = jax_pt.render_pass(jax_scene, jcamera, np.uint32(spp_index))
+            o, d, seeds = pathtracer.camera_rays(camera, spp_index, "cpu")
+
+            def counters(sc, oo, dd):
+                _, stats = pathtracer.sample_radiance(sc, oo, dd, seeds)
+                return torch.stack([stats["traversed"], stats["tested"]], dim=-1)
+        else:
+            st = jax_whitted.render(jax_scene, jcamera)
+            o, d = cam_mod.full_frame_rays(camera, device="cpu")
+            counters = None
+    ours = (pathtracer.render_pass(scene, camera, spp_index)[1] if kind == "pathtracer"
+            else whitted.render(scene, camera))
+    assert {k: record[k] for k in COUNTERS} == metrics.traversal_summary(
+        ours["traversed"], ours["tested"])
+    differ = np.zeros(W * H, bool)
+    for k in ("traversed", "tested"):
+        differ |= ours[k].numpy().reshape(-1) != np.asarray(st[k]).reshape(-1)
+    assert differ.any()
+    unexplained = np.nonzero(differ & ~counter_borderline(scene, o, d, counters))[0]
+    assert unexplained.size == 0, unexplained.tolist()
+    return int(differ.sum())
+
+
 def _matches_jax_cli(tmp_path, argv, kind):
+    """Render `argv` through both CLIs and hold the PNGs and the JSONL
+    keys to the module docstring's rule; (port records, JAX records)."""
     argv = argv + ["--width", str(W), "--height", str(H)]
     ours, theirs = str(tmp_path / "port.png"), str(tmp_path / "jax.png")
     jl_ours, jl_theirs = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
@@ -152,10 +244,12 @@ def _matches_jax_cli(tmp_path, argv, kind):
         moved = borderline.nudge_sensitive(radiance, o[idx], d[idx],
                                            None if seeds is None else seeds[idx])
         assert bool(moved.all()), f"pixels {bad[~moved.numpy()].tolist()} differ beyond one level"
-    if kind != "basics":
-        ours_rec, theirs_rec = _records(jl_ours), _records(jl_theirs)
-        assert len(ours_rec) == len(theirs_rec) >= 1
-        assert [set(r) for r in ours_rec] == [set(r) for r in theirs_rec]
+    if kind == "basics":
+        return None
+    ours_rec, theirs_rec = _records(jl_ours), _records(jl_theirs)
+    assert len(ours_rec) == len(theirs_rec) >= 1
+    assert [set(r) for r in ours_rec] == [set(r) for r in theirs_rec]
+    return ours_rec, theirs_rec
 
 
 def test_checkpoints_resume_across_packages(tmp_path):
@@ -199,7 +293,6 @@ def test_checkpoints_resume_across_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--use-pallas", "false"], "item 12"),
     (["--sharded", "true"], "item 14"),
 ])
 def test_unported_flags_raise(tmp_path, flag, item):

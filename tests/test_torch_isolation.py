@@ -84,5 +84,7 @@ def test_every_kernel_module_is_covered():
                  "render.pathtracer", "render.whitted", "ops.leaf_probe", "ops.sync_probe",
                  "benchmarks.mxu_probe", "benchmarks.sync_probe", "benchmarks.leaf_tolerance",
                  "diff.grad", "diff.optimize", "render.basics", "render.progressive", "cli",
-                 "scene.animate", "scene.primitive_scene", "ops.primitives", "core.noise"):
+                 "scene.animate", "scene.primitive_scene", "ops.primitives", "core.noise",
+                 "ops.traverse_bvh", "ops.traverse_grid", "ops.traverse_kd", "ops.forest",
+                 "accel.types", "accel.compile"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

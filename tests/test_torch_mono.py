@@ -6,7 +6,8 @@ against the JAX package's.
   tables (`use_pallas=True`): node bounds, per-octant child order or
   links, leaf triangle lists in slot order, triangle and shading records.
   With `parity=True` (the reference's normals quirk, its SAH stop and
-  leaves of 2) the BVH equals the JAX package's parity BVH node for node
+  leaves of 2), which takes the reference route as in the JAX package,
+  the reference BVH equals the JAX package's parity BVH node for node
   and the normals take the quirk.
 
 The renders over these tables are `test_torch_mono_render.py`.
@@ -83,40 +84,40 @@ def test_mono_tables_equal_jax(name, accel):
 @pytest.mark.parametrize("name", list(XMLS))
 def test_parity_bvh_and_normals_equal_jax(name):
     """`parity=True`: the JAX package builds its reference tree (no SAH
-    fallback, leaves of 2) for its XLA route; the port packs the same tree
-    for its kernels, and the normals take the rotation-transpose quirk."""
+    fallback, leaves of 2) for its XLA route; the port takes its reference
+    route over the same tree, and the normals take the rotation-transpose
+    quirk."""
     jax_scene, jax_info = jax_compile(XMLS[name], layout="mono", parity=True)
     port, info = compile_scene(XMLS[name], layout="mono", parity=True, device="cpu")
-    bvh = jax_scene.bvh
-    f = port.nodes.numpy().view(np.float32)
-    np.testing.assert_array_equal(f[:, 0:3], np.asarray(bvh.node_min))
-    np.testing.assert_array_equal(f[:, 3:6], np.asarray(bvh.node_max))
-    first, count = np.asarray(bvh.left_first), np.asarray(bvh.tri_count)
-    idx = np.asarray(bvh.tri_indices)
-    tri, leaves = _port_slots(port)
-    assert leaves == {int(n): idx[first[n]:first[n] + count[n]].tolist()
-                      for n in np.nonzero(count > 0)[0]}
-    assert max(len(v) for v in leaves.values()) == info.build_stats.max_leaf
+    assert port.walk == "reference"
+    bvh, ours = jax_scene.bvh, port.reference.structs[0]
+    np.testing.assert_array_equal(ours.box.numpy()[:, 0:3], np.asarray(bvh.node_min))
+    np.testing.assert_array_equal(ours.box.numpy()[:, 3:6], np.asarray(bvh.node_max))
+    np.testing.assert_array_equal(ours.leaf.numpy(), np.stack(
+        [np.asarray(bvh.left_first), np.asarray(bvh.tri_count)], axis=1))
+    np.testing.assert_array_equal(ours.tri_indices.numpy(), np.asarray(bvh.tri_indices))
+    np.testing.assert_array_equal(ours.links.numpy()[:, 0], np.asarray(bvh.hit_link).reshape(-1))
+    assert ours.max_leaf == bvh.max_leaf == info.build_stats.max_leaf
     assert info.build_stats.max_depth == jax_info.build_stats.max_depth
     assert info.build_stats.num_nodes == jax_info.build_stats.num_nodes
     normals = np.concatenate([np.asarray(getattr(jax_scene.tris, k)) for k in ("n0", "n1", "n2")],
                              axis=1)
-    np.testing.assert_array_equal(port.shade.numpy()[:, :9], normals[tri])
+    np.testing.assert_array_equal(port.shade.numpy()[:, :9], normals)
     # the quirk moves the normals of a rotated object
-    default, _ = compile_scene(XMLS[name], layout="mono", device="cpu")
-    d_tri, _ = _port_slots(default)
-    quirk = port.shade.numpy()[np.argsort(tri), :9]
-    assert not np.array_equal(quirk, default.shade.numpy()[np.argsort(d_tri), :9])
+    default, _ = compile_scene(XMLS[name], layout="mono", use_pallas=False, device="cpu")
+    assert not np.array_equal(port.shade.numpy()[:, :9], default.shade.numpy()[:, :9])
 
 
 @pytest.mark.parametrize("accel", ["grid", "kdtree"])
 def test_parity_cell_forest_differs_only_in_normals(accel):
     """The grid and KD builds take no BVH options: under `parity=True` the
-    cell forest is the default one, the normals the quirk's."""
-    a, _ = compile_scene(BENCH_XML, layout="mono", accel=accel, device="cpu")
+    reference route's grid or KD tree is the one `use_pallas=False`
+    builds, the normals the quirk's."""
+    a, _ = compile_scene(BENCH_XML, layout="mono", accel=accel, use_pallas=False, device="cpu")
     b, _ = compile_scene(BENCH_XML, layout="mono", accel=accel, parity=True, device="cpu")
-    for key in ("nodes", "links", "tris"):
-        assert torch.equal(getattr(a, key), getattr(b, key)), key
+    for (key, x), (_, y) in zip(a.reference.named_buffers(), b.reference.named_buffers()):
+        if not key.endswith("shade"):
+            assert torch.equal(x, y), key
     assert torch.equal(a.shade[:, 9:], b.shade[:, 9:])
     assert not torch.equal(a.shade[:, :9], b.shade[:, :9])
 

@@ -1,0 +1,18 @@
+"""The renders of `test_torch_reference_render.py` on the KD forest of the
+TLAS layout (one KD tree per instance, chained by `ops/forest.py`): the
+path tracer, Whitted and the counter AOVs against the JAX package's
+`use_pallas=False` scene, under the same rules."""
+
+import pytest
+
+from test_torch_reference_render import (  # noqa: F401  (the tests run here on these scenes)
+    reference_scenes, test_counter_aovs_match_jax, test_path_tracer_matches_jax,
+    test_whitted_matches_jax,
+)
+
+CASES = {"tlas-kdtree": dict(layout="tlas", accel="kdtree")}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def scenes(request):
+    return reference_scenes(request.param, CASES[request.param])

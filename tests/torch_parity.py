@@ -100,9 +100,22 @@ def jax_scene_over(host: dict, shade16, obj_id, mat_id, xml: str = CUBE_XML):
     return base.replace(packed=pk, tris=tris, bvh=bvh)
 
 
+def jax_compile_reference(xml: str, layout: str = "tlas", **kwargs):
+    """JAX `compile_scene(layout=layout, use_pallas=False, **kwargs)`: the
+    XLA traversals over the reference's tables (leaves of 2)."""
+    from cpu_ray_tracer_tpu.scene.build import compile_scene
+
+    with pytest.MonkeyPatch.context() as mp:
+        jax_reference_env(mp)
+        return compile_scene(xml, layout=layout, use_pallas=False, **kwargs)
+
+
 def jax_scene_arrays(scene):
     """(arrays, meta) of a JAX DeviceScene for `scene_from_arrays`, a
-    shared-instancing one included."""
+    shared-instancing one and one of the XLA route (`use_pallas=False`)
+    included."""
+    if not scene.use_pallas:
+        return _jax_reference_arrays(scene)
     if scene.shared is not None:
         return _jax_shared_arrays(scene)
     pk = scene.packed
@@ -116,6 +129,46 @@ def jax_scene_arrays(scene):
         arrays["packed.node_nearfar"] = pk.node_nearfar
     meta.update(root=pk.root, stack_depth=pk.stack_depth, meta_in_shade=pk.meta_in_shade)
     return {k: np.asarray(v) for k, v in arrays.items()}, meta
+
+
+def _jax_reference_arrays(scene):
+    """The arrays of a JAX scene of the XLA route (`scene/convert.py`):
+    its walk tables (`jax_walk_arrays`) and the common ones."""
+    arrays, meta = _jax_common_arrays(scene)
+    if scene.shared is not None:
+        accel, structs = "bvh", scene.shared.bvhs
+        for k in ("inst_minv", "inst_nrm", "inst_aabb_min", "inst_aabb_max", "inst_obj",
+                  "inst_mat"):
+            arrays[f"shared.{k}"] = getattr(scene.shared, k)
+        meta.update(inst_mesh=scene.shared.inst_mesh, mesh_bounds=scene.shared.mesh_bounds)
+    else:
+        accel = scene.accel_kind
+        structs = dict(bvh=scene.bvh, grid=scene.grid, kdtree=scene.kd)[accel]
+    walk, meta["reference"] = jax_walk_arrays(scene.tris, accel, structs)
+    arrays.update(walk)
+    return {k: np.asarray(v) for k, v in arrays.items()}, meta
+
+
+def jax_walk_arrays(tris, accel: str, structs):
+    """(arrays, reference meta) of the JAX package's XLA walk tables for
+    `scene/convert.reference_tables`: the pool `tris` and the structures
+    `structs` (one, or a tuple walked as a forest) of kind `accel`."""
+    from cpu_ray_tracer_tpu_torch.scene.convert import REF_KEYS
+
+    arrays = {f"tris.{k}": getattr(tris, k) for k in ("v0", "e1", "e2", "obj_id", "mat_id",
+                                                       "shade")}
+    structs = list(structs) if isinstance(structs, (tuple, list)) else [structs]
+    statics = []
+    for i, st in enumerate(structs):
+        for k in REF_KEYS[accel]:
+            arrays[f"ref.{i}.{k}"] = getattr(st, k)
+        if accel == "bvh":
+            statics.append(dict(max_leaf=st.max_leaf, max_depth=st.max_depth, root=st.root))
+        elif accel == "grid":
+            statics.append(dict(resolution=st.resolution, max_cell_len=st.max_cell_len))
+        else:
+            statics.append(dict(max_depth=st.max_depth, max_leaf=st.max_leaf))
+    return {k: np.asarray(v) for k, v in arrays.items()}, dict(accel=accel, structs=statics)
 
 
 def _jax_shared_arrays(scene):

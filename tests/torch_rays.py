@@ -136,3 +136,77 @@ def in_plane_rays(n: int, seed: int):
     o = np.stack([np.full(n, 0.45), y, np.full(n, 2.6)], axis=1).astype(np.float32) - 4 * d
     o[:, 1] = y
     return o, d, np.full(n, 1e34, np.float32), np.ones(n, bool)
+
+
+
+def _loose_tests(mp, sign: float, eps: float) -> None:
+    """Patch the reference walks' slab and Moller-Trumbore tests so that
+    every bound moves by `eps` (relative, or absolute for the
+    barycentrics): outward for sign +1 (a test near its edge passes),
+    inward for -1 (it fails)."""
+    import torch
+
+    from cpu_ray_tracer_tpu_torch.ops import intersect
+
+    e = sign * eps
+
+    def slab(o, rd, t_max, bmin, bmax):
+        t1, t2 = (bmin - o) * rd, (bmax - o) * rd
+        tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+        tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+        return tmin, ((tmax + e * tmax.abs() >= tmin) & (tmin < t_max + e * t_max.abs())
+                      & (tmax > -e * tmax.abs()))
+
+    def tri(o, o_r, d, d_r, v0, v0_r, e1, e1_r, e2, e2_r, t_max):
+        h = d_r[0] * e2_r[1] - d_r[1] * e2_r[0]
+        s = o - v0
+        q = (o_r[0] - v0_r[0]) * e1_r[1] - (o_r[1] - v0_r[1]) * e1_r[0]
+        a = intersect.dot(e1, h)
+        f = 1.0 / a
+        u, v, t = f * intersect.dot(s, h), f * intersect.dot(d, q), f * intersect.dot(e2, q)
+        hit = ((a.abs() * (1 + e) >= 1e-4) & (u >= -e) & (u <= 1 + e) & (v >= -e)
+               & (u + v <= 1 + e) & (t * (1 + e) > 1e-4) & (t < t_max + e * t_max.abs()))
+        return t, u, v, hit
+
+    mp.setattr(intersect, "slab_aabb", slab)
+    mp.setattr(intersect, "mt_rolled", tri)
+
+
+def counter_borderline(scene, o, d, counters=None, eps: float = 1e-6) -> np.ndarray:
+    """Bool [R]: the rays whose walk is fp-borderline.  `counters(scene,
+    o, d)` gives int [R, k] per ray (default: the nearest-hit query's
+    triangle and counters, `scene/query.find_nearest`); a ray is
+    borderline where, over a float64 copy of the scene, they come out
+    otherwise than in float32, or otherwise with every slab and triangle
+    test's bounds moved `eps` outward than moved inward (`_loose_tests`):
+    some test on its walk lies within rounding of its edge, and two
+    float32 evaluations that round differently may count it differently.
+    A path's later rays also hang on the shading's decisions (a Fresnel
+    or lobe threshold): a ray whose counters an `eps` nudge of its camera
+    ray changes (`render/borderline.nudge_sensitive`, the image rule's
+    probe) is borderline too."""
+    from cpu_ray_tracer_tpu_torch.render.borderline import nudge_sensitive
+
+    import copy
+
+    import pytest
+    import torch
+
+    from cpu_ray_tracer_tpu_torch.scene import query
+
+    if counters is None:
+        def counters(sc, oo, dd):
+            r = query.find_nearest(sc, oo, dd)
+            return torch.stack([r[k] for k in ("tri_idx", "traversed", "tested")], dim=-1)
+
+    s64 = copy.deepcopy(scene).to(torch.float64)
+    o64, d64 = o.double(), d.double()
+    plain = counters(scene, o, d)
+    runs = [counters(s64, o64, d64)]
+    for sign in (1.0, -1.0):
+        with pytest.MonkeyPatch.context() as mp:
+            _loose_tests(mp, sign, eps)
+            runs.append(counters(s64, o64, d64))
+    nudged = nudge_sensitive(lambda oo, dd, _: counters(scene, oo, dd).double(), o, d, None,
+                             eps=eps, atol=0.5, rtol=0.0)
+    return (((runs[0] != plain) | (runs[1] != runs[2])).any(dim=-1) | nudged).numpy()

@@ -8,9 +8,23 @@ or another accelerator (`--accel grid|kdtree`, `--wide 1|bounce`).
     python tools/profile_torch_pass.py --accel grid [--integrator whitted]
     python tools/profile_torch_pass.py --wide bounce
     python tools/profile_torch_pass.py --grad [--bilinear] [--integrator whitted]
+    python tools/profile_torch_pass.py --use-pallas false --accel kdtree [--layout mono]
+    python tools/profile_torch_pass.py --use-pallas false --device cpu --width 64 --height 40
 
 The route options default to the scene's own (`compile_scene`'s README
-entry): the kernels on the binary BVH, the host route elsewhere.
+entry): the kernels on the binary BVH, the host route elsewhere;
+`--use-pallas false` takes the reference walks (plain PyTorch, no
+kernel), `--layout mono` the FileScene layout.
+
+`--device cpu` measures nothing on a device: it renders one pass (or
+frame) on the CPU and counts what the render dispatches, the PyTorch
+operations and the host syncs (`nonzero`, `item`), which the card runs
+the same; the prediction of a card's time starts from those counts.
+The reference walks dispatch some 10^5-10^6 operations a pass: on their
+scenes the profiler records the device's activity only (its CPU events
+would take minutes to sum), so the ranges' spans are absent there, and
+with `--passes N` under 3 the warm-up and the profiled window take N
+passes too.
 
 `--grad` profiles a value + grad step instead of a pass or frame: the
 differentiable render (`render_pass` or `whitted.render` with
@@ -29,8 +43,10 @@ Prints the card, ms per pass (or frame) and rays/s over the timed passes
 idle share, the port's own kernels' device time, kernel launches, the span
 of each range on the device timeline (`wavefront_K` and `depth_N` of
 `render/pathtracer.py`, `level_N` of `render/whitted.py`, idle gaps
-included), the device time by kernel, and the host cost of one range with
-the profiler off; `--json PATH` also writes the result there.
+included), the device time by kernel, the PyTorch operations and host
+syncs (`aten::nonzero`, `aten::_local_scalar_dense`) of one more pass,
+counted as they dispatch, and the host cost of one range with the
+profiler off; `--json PATH` also writes the result there.
 """
 
 import argparse
@@ -63,6 +79,27 @@ def device_kernels(prof, device_type):
     spans = {e.key: _device_us(e) for e in on_device if e.key.startswith(RANGES)}
     kernels = sorted((e for e in on_device if e.key not in spans), key=lambda e: -_device_us(e))
     return spans, kernels, sum(_device_us(e) for e in kernels)
+
+
+SYNC_OPS = ("aten::nonzero", "aten::_local_scalar_dense")
+
+
+def count_ops(run) -> tuple[dict, int]:
+    """The PyTorch operations and host syncs (SYNC_OPS) of `run(1)`,
+    counted as they dispatch, and its rays."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = syncs = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            Count.syncs += f"aten::{str(func).split('.')[1]}" in SYNC_OPS
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        rays = run(1)
+    return dict(torch_ops_per_pass=Count.ops, host_syncs_per_pass=Count.syncs), rays
 
 
 def grad_step(scene, camera, integrator: str, spp_index: int = 1):
@@ -111,6 +148,11 @@ def main() -> int:
     ap.add_argument("--passes", type=int, default=10)
     ap.add_argument("--integrator", choices=("pathtracer", "whitted"), default="pathtracer")
     ap.add_argument("--accel", choices=("bvh", "grid", "kdtree"), default="bvh")
+    ap.add_argument("--layout", choices=("tlas", "mono"), default="tlas")
+    ap.add_argument("--use-pallas", choices=("auto", "true", "false"), default="auto")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--width", type=int, default=1280)
+    ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--wide", choices=("0", "1", "bounce"), default="0")
     ap.add_argument("--wavefront-depths", type=int, default=None)
     ap.add_argument("--level-kernel", type=int, choices=(0, 1), default=None)
@@ -118,21 +160,21 @@ def main() -> int:
     ap.add_argument("--bilinear", action="store_true", help="the bilinear texture tap")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
     wide = dict(zip(("0", "1", "bounce"), (False, True, "bounce")))[args.wide]
+    use_pallas = None if args.use_pallas == "auto" else args.use_pallas == "true"
     scene, _ = compile_scene(os.path.join(REPO, "assets", "scenes", "bunny_teapot.xml"),
-                             accel=args.accel, wide=wide, bilinear=args.bilinear, device="cuda")
-    camera = cam_mod.make_camera(1280, 720, pos=(0.0, 0.3, -1.2), target=(0.0, -0.1, 2.5))
+                             layout=args.layout, accel=args.accel, wide=wide,
+                             bilinear=args.bilinear, use_pallas=use_pallas, device=args.device)
+    camera = cam_mod.make_camera(args.width, args.height, pos=(0.0, 0.3, -1.2),
+                                 target=(0.0, -0.1, 2.5))
     level_kernel = None if args.level_kernel is None else bool(args.level_kernel)
     backward = None
     if args.grad:
-        config = f"accel={args.accel} wide={wide} bilinear={args.bilinear} grad {args.integrator}"
+        config = (f"layout={args.layout} accel={args.accel} use_pallas={use_pallas} wide={wide} "
+                  f"bilinear={args.bilinear} grad {args.integrator}")
         forward, backward = grad_step(scene, camera, args.integrator)
 
         def run(_):
@@ -141,19 +183,34 @@ def main() -> int:
             return rays
     elif args.integrator == "pathtracer":
         depths = pathtracer.wavefront_depths_for(scene, args.wavefront_depths)
-        config = f"accel={args.accel} wide={wide} wavefront_depths={depths}"
+        config = (f"layout={args.layout} accel={args.accel} use_pallas={use_pallas} wide={wide} "
+                  f"wavefront_depths={depths}")
 
         def run(p):
             _, stats = pathtracer.render_pass(scene, camera, p, wavefront_depths=depths)
             return stats["rays_traced"]
     else:
         level_kernel = whitted.level_kernel_for(scene, level_kernel)
-        config = f"accel={args.accel} wide={wide} level_kernel={level_kernel}"
+        config = (f"layout={args.layout} accel={args.accel} use_pallas={use_pallas} wide={wide} "
+                  f"level_kernel={level_kernel}")
 
         def run(p):
             return whitted.render(scene, camera, level_kernel=level_kernel)["rays"]
 
-    for p in range(3):  # warm-up: kernel build, allocator, library handles
+    if args.device == "cpu":
+        counts, rays = count_ops(run)
+        result = dict(device="cpu (counts only: no time is measured)", integrator=args.integrator,
+                      config=config, width=args.width, height=args.height, rays_per_pass=rays,
+                      **counts)
+        print(json.dumps(result, indent=1))
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+    window = min(3, args.passes)
+    for p in range(window):  # warm-up: kernel build, allocator, library handles
         run(100 + p)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -171,8 +228,10 @@ def main() -> int:
             pass
     range_us = 1e6 * (time.perf_counter() - start) / probes
 
-    window = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if scene.reference is None:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         wall = time.perf_counter()
         for p in range(window):
             run(p + 1)
@@ -197,6 +256,7 @@ def main() -> int:
         device_idle_share=1.0 - busy_us / 1e6 / wall,
         our_kernels_ms_per_pass={k: v for k, v in ours.items() if v},
         kernel_launches_per_pass=sum(e.count for e in kernels) / window,
+        **count_ops(run)[0],
         record_function_host_us_profiler_off=range_us,
         device_span_ms_per_pass_by_range={k: us / 1e3 / window for k, us in sorted(spans.items())},
         device_ms_per_pass_by_kernel=[
