@@ -187,20 +187,45 @@ view and depth:
 12. (a) the TLAS BVH, grid forest and KD forest and the mono grid and KD
     tree, closest and any hit on the 921,600 primary rays and on the live
     bounce rays after the first hit (phase 3's): each walk on the card
-    against its own run on the CPU on the same rays, integers exact
-    (counters and loop steps included), floats within atol=2e-5,
-    rtol=1e-4; loop steps, host syncs, ms on the card and on the CPU, mean
-    and peak `traversed` / `tested` per ray; (b) a `render_pass` and a
-    Whitted frame at full width for the TLAS BVH, grid and KD tree, no
-    kernel launched: `rays_traced` within 1e-4 relative of the kernels'
-    route's pass on the same scene and camera (the JAX package's
-    invariant across accelerators), energy within 1e-3 of it, images
-    finite and non-zero; (c) `cli.main` with `--use-pallas false` on the
+    against its own run on the CPU on every 8th of those rays (a ray's
+    result does not depend on its batch), integers exact (counters
+    included; the CPU subset's loop steps at most the card's), floats
+    within atol=2e-5, rtol=1e-4; loop steps, host syncs, ms on the card
+    and on the CPU, mean and peak `traversed` / `tested` per ray; (b) a
+    `render_pass` at full width for the TLAS BVH, grid and KD tree and a
+    Whitted frame for each (the KD forest's at 320x180), no kernel
+    launched: `rays_traced`
+    within 1e-4 relative of the kernels' route's pass on the same scene
+    and camera (the JAX package's invariant across accelerators), energy
+    within 1e-3 of it, images finite and non-zero; (c) `cli.main` with `--use-pallas false` on the
     card and with `--device cpu` at 64x40, path tracer (2 samples) and
     Whitted: the JSONL counters equal record by record; (d) a
     shared-instancing pass on this route against the baked one: energy
     within 1e-3, the image rule of phase 11.  Its walks add no entry to
     the kernels line.
+
+The native scene builder and data parallelism, on the same scene, view and
+depth:
+
+13. (a) `compile_scene` with the native (C++) builder against the numpy
+    one, with the move to the card, for the TLAS, mono and shared layouts
+    and `use_pallas=False`: seconds of each (the g++ build of
+    `accel/native.py`, its flags and the host's `fma` are printed in
+    phase 2); a pass over the native tree against one over the numpy
+    tree (the same salt): `rays_traced` within 1e-4 relative, energy
+    within 1e-3, each pixel beyond the parity tolerance fp-borderline on
+    one tree or the other; the SAH tree against the SBVH
+    (`sbvh=True`): node and triangle-reference counts, then 8 passes and
+    4 Whitted frames (the level kernel) each in turns, ms and launches,
+    the same rules between the two; (b) `parallel/sharded.
+    sharded_render_pass` in a world of one over NCCL against
+    `render_pass`, 8 passes each in turns: bit-equal images, `rays_traced`
+    and counters, ms per pass of each; 5 steps of
+    `make_sharded_train_step` against 5 of `make_train_step` (1280x720,
+    bilinear, from perturbed parameters): losses within 1e-5 relative,
+    parameters within rtol 1e-5, atol 1e-6; `cli.main` with `--sharded 1
+    --n-devices 1` (2 samples), whose first JSONL record gives the world
+    of one.
 
 Each drive of a main path (one pass or one frame, a gradient or train
 step, a CLI run, or one probe run) sets every kernel's launch count to 0
@@ -302,6 +327,11 @@ REF_CONFIGS = {"tlas-bvh": dict(layout="tlas", accel="bvh"),
                "mono-grid": dict(layout="mono", accel="grid"),
                "mono-kdtree": dict(layout="mono", accel="kdtree")}
 REF_SPP = 1
+# phase 12: the CPU runs of (a) take every REF_STRIDE-th ray of the card's
+REF_STRIDE = 8
+# phase 13: SAH against SBVH passes and Whitted frames, sharded against
+# unsharded passes
+SBVH_PASSES, SBVH_FRAMES, SHARD_PASSES = 8, 4, 8
 
 
 def card() -> str:
@@ -558,7 +588,8 @@ def main() -> int:
     from cpu_ray_tracer_tpu_torch.core import film as film_mod
     from cpu_ray_tracer_tpu_torch.core.noise import noise2d
     from cpu_ray_tracer_tpu_torch.diff import grad as grad_mod
-    from cpu_ray_tracer_tpu_torch.diff.optimize import make_train_step
+    from cpu_ray_tracer_tpu_torch.accel import native
+    from cpu_ray_tracer_tpu_torch.diff.optimize import make_sharded_train_step, make_train_step
     from cpu_ray_tracer_tpu_torch.ops import (
         closest_hit as stack_walk, intersect, kernel_lib, leaf_probe, link_walk, sync_probe,
         wavefront_pt, whitted_wf, wide_bvh,
@@ -567,6 +598,8 @@ def main() -> int:
         closest_hit, closest_hit_plain, occluded, occluded_plain,
     )
     from cpu_ray_tracer_tpu_torch.io.image import decode_png
+    from cpu_ray_tracer_tpu_torch.parallel import mesh as mesh_mod
+    from cpu_ray_tracer_tpu_torch.parallel import sharded
     from cpu_ray_tracer_tpu_torch.render import (
         basics, borderline, debug, pathtracer, progressive, whitted,
     )
@@ -594,6 +627,11 @@ def main() -> int:
     for line in k.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  nvcc: {line.strip()}")
+
+    nat = native.load()
+    print(f"native scene builder: {os.path.relpath(nat.path, REPO)} built by {native.CXX} "
+          f"{' '.join(native.CXXFLAGS)} in {nat.build_seconds:.2f} s (0: loaded); host CPU "
+          f"fma {native.has_fma()}")
 
     # --- 3. each kernel against its plain version, main-path inputs --------
     start = time.perf_counter()
@@ -1420,8 +1458,10 @@ def main() -> int:
         return os.path.join(cli_dir, name)
 
     def records(name):
+        """A CLI's step and frame records (its first record states what ran)."""
         with open(at(name)) as f:
-            return [json.loads(line) for line in f.read().strip().splitlines()]
+            recs = [json.loads(line) for line in f.read().strip().splitlines()]
+        return [r for r in recs if "runtime" not in r]
 
     print(f"runtime flags: {json.dumps(metrics_mod.runtime_flags(dev))}")
     cli_argv = ["--scene-xml", XML, "--width", str(WIDTH), "--height", str(HEIGHT),
@@ -1905,30 +1945,39 @@ def main() -> int:
                                              g.reference.walk(*a), [])
                 if any(counts.values()):
                     raise AssertionError(f"{what}: launched {counts}")
+                # the CPU walks every REF_STRIDE-th ray (a ray's hit and
+                # counters do not depend on the others in its batch; the
+                # loop steps, the batch's longest walk, do)
+                sub = slice(None, None, REF_STRIDE)
                 start = time.perf_counter()
-                want = ref_cpu[label].reference.walk(ro.cpu(), rd_.cpu(), rt0.cpu(), any_hit)
+                want = ref_cpu[label].reference.walk(ro[sub].cpu(), rd_[sub].cpu(),
+                                                     rt0[sub].cpu(), any_hit)
                 cpu_s = time.perf_counter() - start
                 for key in ("tri_idx", "obj_id", "mat_id", "traversed", "tested"):
-                    if not torch.equal(got[key].cpu(), want[key]):
+                    if not torch.equal(got[key][sub].cpu(), want[key]):
                         raise AssertionError(f"{what}: {key} differs from the CPU's")
-                err = max(float((got[k].cpu() - want[k]).abs().max()) for k in ("t", "u", "v"))
+                err = max(float((got[k][sub].cpu() - want[k]).abs().max())
+                          for k in ("t", "u", "v"))
                 for key in ("t", "u", "v"):
-                    if not torch.allclose(got[key].cpu(), want[key], atol=2e-5, rtol=1e-4):
+                    if not torch.allclose(got[key][sub].cpu(), want[key], atol=2e-5, rtol=1e-4):
                         raise AssertionError(f"{what}: {key} beyond the parity tolerance")
-                if got["loop_steps"] != want["loop_steps"]:
+                if want["loop_steps"] > got["loop_steps"]:
                     raise AssertionError(f"{what}: loop steps {got['loop_steps']}, the CPU's "
-                                         f"{want['loop_steps']}")
+                                         f"on a subset {want['loop_steps']}")
                 tr, te = got["traversed"].float(), got["tested"].float()
                 print(f"{what}: {ro.shape[0]} rays, {int((got['tri_idx'] >= 0).sum())} hits, "
                       f"{got['loop_steps']} loop steps, {got['syncs']} host syncs, "
-                      f"{1e3 * seconds:.1f} ms on the card, {1e3 * cpu_s:.1f} ms on the CPU; "
-                      f"traversed mean {float(tr.mean()):.3f} peak {int(tr.max())}, tested "
-                      f"mean {float(te.mean()):.3f} peak {int(te.max())}; integers equal, "
-                      f"floats max abs err {err:.3g}; {card_line}")
+                      f"{1e3 * seconds:.1f} ms on the card, {1e3 * cpu_s:.1f} ms on the CPU for "
+                      f"every {REF_STRIDE}th ray ({want['loop_steps']} loop steps); traversed "
+                      f"mean {float(tr.mean()):.3f} peak {int(tr.max())}, tested mean "
+                      f"{float(te.mean()):.3f} peak {int(te.max())}; integers equal, floats max "
+                      f"abs err {err:.3g}; {card_line}")
 
-    # (b) a pass and a Whitted frame per accelerator at full width, against
-    # the kernels' route on the same scene and camera
+    # (b) a pass and a Whitted frame per accelerator at full width (the KD
+    # forest's frame at a quarter of it), against the kernels' route on the
+    # same scene and camera
     ref_passes = {}
+    kd_camera = cam_mod.make_camera(WIDTH // 4, HEIGHT // 4, **CAMERA)
     for label in ("tlas-bvh", "tlas-grid", "tlas-kdtree"):
         g = ref_gpu[label]
         kernel_scene = scene if label == "tlas-bvh" else gpu_scenes[label.split("-")[1]]
@@ -1953,11 +2002,15 @@ def main() -> int:
         if abs(energy - k_energy) > 1e-3 * k_energy:
             raise AssertionError(f"reference render_pass {label}: energy {energy}, the "
                                  f"kernels' {k_energy}")
+        # the KD forest's frame at a quarter of the width and height (at
+        # full size it takes 35 s, host-bound)
+        w_cam = kd_camera if label == "tlas-kdtree" else camera
         out, seconds, counts = drive(f"reference whitted {label}",
-                                     lambda g=g: whitted.render(g, camera, DEPTH), [])
-        k_out = whitted.render(kernel_scene, camera, DEPTH)
+                                     lambda g=g, c=w_cam: whitted.render(g, c, DEPTH), [])
+        k_out = whitted.render(kernel_scene, w_cam, DEPTH)
         w_energy, kw_energy = float(out["image"].sum()), float(k_out["image"].sum())
-        print(f"reference whitted {WIDTH}x{HEIGHT} depth {DEPTH} {label}: {1e3 * seconds:.1f} ms, "
+        print(f"reference whitted {w_cam.width}x{w_cam.height} depth {DEPTH} {label}: "
+              f"{1e3 * seconds:.1f} ms, "
               f"rays {out['rays']} (kernels' route {k_out['rays']}) in {out['levels']} levels, "
               f"energy {w_energy:.6g} (kernels {kw_energy:.6g}), primary traversed "
               f"{int(out['traversed'].sum())} tested {int(out['tested'].sum())}, launches "
@@ -1983,7 +2036,8 @@ def main() -> int:
                 "--cam-target", ",".join(str(x) for x in CAMERA["target"]),
                 "--out", os.path.join(cli_dir, "ref.png"), "--metrics-jsonl", j]), [])
             with open(jl) as f:
-                recs[device] = [json.loads(line) for line in f.read().strip().splitlines()]
+                recs[device] = [r for r in map(json.loads, f.read().strip().splitlines())
+                                if "runtime" not in r]
             if rc != 0 or any(counts.values()):
                 raise AssertionError(f"cli --use-pallas false {integrator} {device}: rc {rc}, "
                                      f"launches {counts}")
@@ -2014,6 +2068,176 @@ def main() -> int:
         lambda oo, dd, ss: pathtracer.sample_radiance(sh_ref, oo, dd, ss, DEPTH)[0],
         lambda oo, dd, ss: pathtracer.sample_radiance(ref_gpu["tlas-bvh"], oo, dd, ss, DEPTH)[0],
         pathtracer.camera_rays(camera, REF_SPP, dev))
+
+    # --- 13. the native builder and the SBVH; the sharded pass and step -----
+    phase13_start = time.perf_counter()
+    # (a) build seconds, native against numpy, in turns
+    builds = {"tlas": {}, "mono": dict(layout="mono"), "shared": dict(instancing="shared"),
+              "use_pallas=False": dict(use_pallas=False)}
+    built = {}
+    for label, kw in builds.items():
+        for builder in ("native", "numpy"):
+            start = time.perf_counter()
+            sc, inf = compile_scene(XML, builder=builder, device=dev, **kw)
+            torch.cuda.synchronize()
+            built[label, builder] = (time.perf_counter() - start, sc, inf)
+        (tn, _, inf_n), (tp, _, inf_p) = built[label, "native"], built[label, "numpy"]
+        print(f"compile_scene {label} with the move to the card: native {tn:.3f} s, numpy "
+              f"{tp:.3f} s ({tp / tn:.2f}x); nodes {inf_n.num_nodes} / {inf_p.num_nodes}; "
+              f"{card_line}")
+    np_scene = built["tlas", "numpy"][1]
+    # the native tree's pass against the numpy tree's, same camera and salt
+    rays13 = pathtracer.camera_rays(camera, 13, dev)
+    img_n, st_n = pathtracer.render_pass(scene, camera, 13, DEPTH)
+    img_p, st_p = pathtracer.render_pass(np_scene, camera, 13, DEPTH)
+    e_n, e_p = float(img_n.sum()), float(img_p.sum())
+
+    def either_borderline(label, img_a, img_b, rad_a, rad_b, rays):
+        """Pixels of two trees' images beyond the parity tolerance, each of
+        which must be fp-borderline on one tree or the other."""
+        cmp = borderline.unexplained_pixels(rad_a, rays, img_a.cpu(), img_b.cpu())
+        left = cmp["unexplained"]
+        if left.numel():
+            idx = left.to(dev)
+            o_, d_, s_ = rays
+            left = left[~borderline.nudge_sensitive(rad_b, o_[idx], d_[idx],
+                                                    None if s_ is None else s_[idx])]
+        print(f"{label}: pixels beyond tolerance {cmp['bad'].numel()}, fp-borderline on "
+              f"neither tree {left.numel()}")
+        if left.numel():
+            raise AssertionError(f"{label}: pixels {left[:16].tolist()} differ")
+
+    print(f"render_pass {WIDTH}x{HEIGHT} depth {DEPTH} native tree against numpy tree: "
+          f"rays_traced {st_n['rays_traced']} / {st_p['rays_traced']}, energy {e_n:.7g} / "
+          f"{e_p:.7g} (relative {abs(e_n - e_p) / e_p:.3g}); {card_line}")
+    if (abs(st_n["rays_traced"] - st_p["rays_traced"]) > 1e-4 * st_p["rays_traced"]
+            or abs(e_n - e_p) > 1e-3 * e_p or not bool(torch.isfinite(img_n).all())):
+        raise AssertionError("the native tree's pass departs from the numpy tree's")
+    either_borderline(
+        "native tree against numpy tree", img_n, img_p,
+        lambda oo, dd, ss: pathtracer.sample_radiance(scene, oo, dd, ss, DEPTH)[0],
+        lambda oo, dd, ss: pathtracer.sample_radiance(np_scene, oo, dd, ss, DEPTH)[0], rays13)
+    # SAH against SBVH, passes and Whitted frames (the level kernel) in turns
+    start = time.perf_counter()
+    sbvh_scene, sbvh_info = compile_scene(XML, sbvh=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"compile_scene sbvh=True with the move to the card: {time.perf_counter() - start:.3f} "
+          f"s; nodes {sbvh_info.num_nodes} (SAH {info.num_nodes}), triangle references "
+          f"{sbvh_scene.tris.shape[0]} (SAH {scene.tris.shape[0]}) for {info.triangle_count} "
+          f"triangles, depth {sbvh_info.max_tree_depth} (SAH {info.max_tree_depth})")
+    trees = {"sah": scene, "sbvh": sbvh_scene}
+    tree_runs = {t: dict(pass_s=[], frame_s=[], rays=0, counts={}, fcounts={}) for t in trees}
+    for sc in trees.values():
+        pathtracer.render_pass(sc, camera, 100, DEPTH)  # warm-up
+        whitted.render(sc, camera, DEPTH, True)
+    for i, t in enumerate(turns(list(trees), SBVH_PASSES)):
+        sc, r = trees[t], tree_runs[t]
+        (img, st), seconds, counts = drive(
+            f"render_pass {t}", lambda sc=sc, p=i // 2: pathtracer.render_pass(sc, camera, p + 1,
+                                                                                DEPTH),
+            ["wavefront_pt", "closest_hit"])
+        r["pass_s"].append(seconds)
+        r["rays"] += st["rays_traced"]
+        r["energy"] = r.get("energy", 0.0) + float(img.sum())
+        r["counts"] = {k: r["counts"].get(k, 0) + c for k, c in counts.items() if c}
+    for t in turns(list(trees), SBVH_FRAMES):
+        sc, r = trees[t], tree_runs[t]
+        out, seconds, counts = drive(
+            f"whitted {t}", lambda sc=sc: whitted.render(sc, camera, DEPTH, True), ["whitted_wf"])
+        r["frame_s"].append(seconds)
+        r["fcounts"] = {k: r["fcounts"].get(k, 0) + c for k, c in counts.items() if c}
+        r["frame"] = out
+    for t, r in tree_runs.items():
+        out = r["frame"]
+        if out["dropped"] or not bool(torch.isfinite(out["image"]).all()):
+            raise AssertionError(f"whitted {t}: bad frame")
+        print(f"{t}: {SBVH_PASSES} passes {1e3 * sum(r['pass_s']) / SBVH_PASSES:.2f} ms/pass "
+              f"(median {1e3 * sorted(r['pass_s'])[SBVH_PASSES // 2]:.2f}), rays_traced "
+              f"{r['rays'] // SBVH_PASSES} a pass, energy {r['energy'] / SBVH_PASSES:.7g}, "
+              f"launches per pass { {k: c / SBVH_PASSES for k, c in r['counts'].items()} }; "
+              f"{SBVH_FRAMES} Whitted frames {1e3 * sum(r['frame_s']) / SBVH_FRAMES:.2f} ms/frame "
+              f"(median {1e3 * sorted(r['frame_s'])[SBVH_FRAMES // 2]:.2f}), rays {out['rays']}, "
+              f"launches per frame { {k: c / SBVH_FRAMES for k, c in r['fcounts'].items()} }; "
+              f"{card_line}")
+    sah, sb = tree_runs["sah"], tree_runs["sbvh"]
+    print(f"sbvh against sah: ms/pass {sum(sb['pass_s']) / sum(sah['pass_s']):.4f}x, ms/frame "
+          f"{sum(sb['frame_s']) / sum(sah['frame_s']):.4f}x")
+    if (abs(sb["rays"] - sah["rays"]) > 1e-4 * sah["rays"]
+            or abs(sb["energy"] - sah["energy"]) > 1e-3 * sah["energy"]):
+        raise AssertionError("the SBVH's passes depart from the SAH tree's")
+    either_borderline(
+        "whitted sbvh against sah", sb["frame"]["image"], sah["frame"]["image"],
+        lambda oo, dd, _: whitted.radiance(sbvh_scene, oo, dd, DEPTH, True)[0],
+        lambda oo, dd, _: whitted.radiance(scene, oo, dd, DEPTH, True)[0], (wo, wd, None))
+
+    # (b) the sharded pass and train step in a world of one (NCCL)
+    mesh = mesh_mod.make_mesh(1)
+    try:
+        print(f"mesh: rank {mesh.rank} of {mesh.world}, backend {mesh.backend}, {mesh.device}")
+        run = sharded.sharded_render_pass(mesh_mod.replicate_scene(scene, mesh), camera, mesh,
+                                          DEPTH)
+        run(100)  # warm-up
+        shard_s = {"sharded": [], "render_pass": []}
+        for i, key in enumerate(turns(list(shard_s), SHARD_PASSES)):
+            fn = ((lambda p=i // 2: run(p + 1)) if key == "sharded"
+                  else (lambda p=i // 2: pathtracer.render_pass(scene, camera, p + 1, DEPTH)))
+            (img, st), seconds, _ = drive(f"{key} pass", fn, ["wavefront_pt", "closest_hit"])
+            shard_s[key].append(seconds)
+            if key == "sharded":
+                want, want_st = pathtracer.render_pass(scene, camera, i // 2 + 1, DEPTH)
+                if (not torch.equal(img, want) or st["rays_traced"] != want_st["rays_traced"]
+                        or not torch.equal(st["traversed"], want_st["traversed"])):
+                    raise AssertionError("the sharded pass is not bit-equal to render_pass")
+        print(f"sharded_render_pass world of one, bit-equal to render_pass (image, rays_traced, "
+              f"counters): ms/pass sharded {1e3 * sum(shard_s['sharded']) / SHARD_PASSES:.2f}, "
+              f"render_pass {1e3 * sum(shard_s['render_pass']) / SHARD_PASSES:.2f}; {card_line}")
+        with torch.no_grad():
+            target = pt_render(bil)[0]
+        start_params = perturbed(grad_mod.extract_params(bil, ("albedo", "light_color",
+                                                               "texels")))
+        single = make_train_step(bil, camera, target, start_params, 0.05, DEPTH, device=dev)
+        shard_step = make_sharded_train_step(bil, camera, target, start_params, 0.05, mesh,
+                                             DEPTH)
+        steps = {"single": [], "sharded": []}
+        for i in range(TRAIN_STEPS):
+            for key, fn in (("single", single), ("sharded", shard_step)):
+                (loss, ms), counts = counted(kernels, lambda fn=fn: timed_once(
+                    lambda: fn(GRAD_SPP)))
+                if counts["closest_hit"] != DEPTH + 1:
+                    raise AssertionError(f"{key} train step {i}: closest_hit launched "
+                                         f"{counts['closest_hit']}")
+                for k in kernels:
+                    launches[k] += counts[k]
+                steps[key].append((float(loss), ms))
+        worst = max(float(((single.params[k] - shard_step.params[k]).abs()
+                           - 1e-5 * single.params[k].abs()).max()) for k in single.params)
+        loss_rel = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(steps["single"],
+                                                                  steps["sharded"]))
+        print(f"make_sharded_train_step world of one against make_train_step, {TRAIN_STEPS} "
+              f"steps {WIDTH}x{HEIGHT} depth {DEPTH}: losses "
+              f"{[f'{x:.7g}' for x, _ in steps['sharded']]} (single {[f'{x:.7g}' for x, _ in steps['single']]}), largest loss difference "
+              f"{loss_rel:.3g} relative, parameters' largest excess over rtol 1e-5 {worst:.3g} "
+              f"(atol 1e-6); ms per step sharded {[f'{ms:.1f}' for _, ms in steps['sharded']]}, "
+              f"single {[f'{ms:.1f}' for _, ms in steps['single']]}; {card_line}")
+        if loss_rel > 1e-5 or worst > 1e-6:
+            raise AssertionError("the sharded train step departs from the single-device step")
+    finally:
+        mesh.close()
+    cli_dir = os.path.join(REPO, "build", "smoke_cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    jl = os.path.join(cli_dir, "sharded.jsonl")
+    rc, seconds, counts = drive("cli --sharded", lambda: cli.main(
+        cli_argv + ["--integrator", "pathtracer", "--spp", "2", "--sharded", "1",
+                    "--n-devices", "1", "--out", os.path.join(cli_dir, "sharded.png"),
+                    "--metrics-jsonl", jl]), pt_route)
+    with open(jl) as f:
+        head = json.loads(f.readline())
+    print(f"cli --sharded 1 --n-devices 1, 2 samples: rc {rc}, {seconds:.2f} s, first record "
+          f"{head}, launches { {k: c for k, c in counts.items() if c} }")
+    if rc != 0 or head["runtime"].get("world") != 1 or not head["runtime"]["native"]:
+        raise AssertionError("cli --sharded failed")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    print(f"phase 13 in {time.perf_counter() - phase13_start:.1f} s")
 
     sources = dict(closest_hit=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),
                    occluded=("closest_hit.cu", "ops/pallas/packet_bvh.py:442"),

@@ -1,9 +1,20 @@
-"""Host-side (numpy) binned-SAH BVH builder.
+"""Host-side binned-SAH BVH builder, as the JAX package's
+`cpu_ray_tracer_tpu/accel/bvh_builder.py` (`build_bvh`, `thread_links`,
+`refit_bvh`), with its two builders:
 
-The numpy path of the JAX package's `cpu_ray_tracer_tpu/accel/bvh_builder.py`
-(`build_bvh`), line for line, so that both packages build the same tree
-from the same triangles: node numbering, split choices and the
-leaf-partitioned triangle order all match.  Build semantics follow the
+* `builder="native"` (the default, as the JAX package's, whose loader
+  takes the C++ library wherever it loads): the C++ build of
+  `accel/native.py`, the port's copy of the JAX package's
+  native/crt_native.cpp, compiled with the same flags, so that both
+  packages build the same trees; `sbvh=True` takes its SBVH build
+  (spatial splits, the JAX package's `CRT_SBVH=1`);
+* `builder="numpy"`: the numpy path of the JAX package's `build_bvh`,
+  line for line (the JAX package's `CRT_NATIVE=0`).
+
+The two compare the SAH costs in float32 (C++) and float64 (numpy), so
+their trees may differ where two split costs nearly tie; node numbering,
+split choices and the leaf-partitioned triangle order match the JAX
+package's builder of the same kind.  Build semantics follow the
 reference (infra/bvh.cpp:63-178):
 
 * node bounds grown from triangle vertices (UpdateNodeBounds);
@@ -25,35 +36,26 @@ None.  The build returns its `BuildStats` (the JAX package's
 accel/types.py:110-118).
 
 `thread_links` threads a tree or forest with per-octant hit and miss
-links for the link walk (`ops/link_walk.py`); `refit_bvh` grows a built
-tree's bounds to moved triangles, its topology kept.
-
-The native C++ builder and the SBVH spatial-split build of the JAX package
-are not ported yet (ROADMAP).
+links for the link walk (`ops/link_walk.py`), by the C++ walk whichever
+builder built the tree (the links depend on the topology alone);
+`refit_bvh` grows a built tree's bounds to moved triangles, its
+topology kept (numpy only, as in the JAX package).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import numpy as np
 
+from cpu_ray_tracer_tpu_torch.accel import native
+from cpu_ray_tracer_tpu_torch.accel.types import BuildStats, HostBVH
+
+BUILDERS = ("native", "numpy")
+
 BINS = 8
 FORCE_SPLIT_CAP = 4
 LEAF_TARGET = 24
-
-
-@dataclasses.dataclass
-class BuildStats:
-    """Host-side build instrumentation, as the reference's buildTime us and
-    maxDepth (infra/bvh.cpp:6,22-23,111)."""
-
-    build_time_us: int = 0
-    max_depth: int = 0
-    num_nodes: int = 0
-    num_leaves: int = 0
-    max_leaf: int = 0
 
 
 def tri_centroids(tri_v: np.ndarray) -> np.ndarray:
@@ -66,34 +68,36 @@ def _half_area(bmin: np.ndarray, bmax: np.ndarray) -> float:
     return float(e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
 
 
-class HostBVH:
-    """Builder output: per-node arrays, trimmed to `nodes_used`.  Interior
-    nodes have `tri_count == 0` and children `left`/`right`; leaves hold
-    `tri_count` triangles from `left_first` in the triangle index array."""
-
-    def __init__(self, n_tris: int):
-        cap = max(2 * n_tris - 1, 1)
-        self.node_min = np.full((cap, 3), 1e30, np.float32)
-        self.node_max = np.full((cap, 3), -1e30, np.float32)
-        self.left_first = np.zeros(cap, np.int32)
-        self.tri_count = np.zeros(cap, np.int32)
-        self.left = np.full(cap, -1, np.int32)
-        self.right = np.full(cap, -1, np.int32)
-        self.axis = np.zeros(cap, np.int32)
-        self.nodes_used = 1
-
-    def trim(self):
-        m = self.nodes_used
-        for name in ("node_min", "node_max", "left_first", "tri_count", "left", "right", "axis"):
-            setattr(self, name, getattr(self, name)[:m])
-        return self
+def check_builder(builder: str, sbvh: bool = False) -> None:
+    """Raise for an unknown builder, or an SBVH asked of the numpy one."""
+    if builder not in BUILDERS:
+        raise ValueError(f"builder={builder!r}: expected 'native' or 'numpy'")
+    if sbvh and builder != "native":
+        raise ValueError("sbvh=True needs builder='native': there is no numpy SBVH build")
 
 
 def build_bvh(tri_v: np.ndarray, force_split_cap: int | None = FORCE_SPLIT_CAP,
-              leaf_target: int | None = LEAF_TARGET):
-    """Build a binned-SAH BVH over triangles `tri_v` [N, 3, 3].
+              leaf_target: int | None = LEAF_TARGET, builder: str = "native",
+              sbvh: bool = False):
+    """Build a binned-SAH BVH over triangles `tri_v` [N, 3, 3] with
+    `builder` (module docstring).
 
-    Returns (HostBVH, tri_indices [N] int32, BuildStats)."""
+    `sbvh=True` builds the SBVH (native only) with leaves of `leaf_target`,
+    8 where it is None, and no `force_split_cap` (its own median fallback
+    splits nodes over four leaves' worth), as the JAX package's
+    `CRT_SBVH=1` (bvh_builder.py:89-100 there); where its node or
+    reference cap trips it builds the plain SAH tree, as the JAX package
+    does.  Its tri_indices may repeat a triangle (`accel/native.py`).
+
+    Returns (HostBVH, tri_indices [N] int32 (SBVH: [K >= N]), BuildStats)."""
+    check_builder(builder, sbvh)
+    if sbvh:
+        built = native.build_sbvh_native(tri_v, bins=BINS, leaf_target=leaf_target or 8)
+        if built is not None:
+            return built
+    if builder == "native":
+        return native.build_bvh_native(tri_v, bins=BINS, force_split_cap=force_split_cap,
+                                       leaf_target=leaf_target)
     leaf_stop = 2 if leaf_target is None else leaf_target
     t0 = time.perf_counter()
     n = tri_v.shape[0]
@@ -240,41 +244,27 @@ def refit_bvh(host: HostBVH, tri_indices: np.ndarray, tri_v: np.ndarray) -> None
 
 def thread_links(left, right, tri_count, axis, roots=None) -> tuple[np.ndarray, np.ndarray]:
     """Per-octant hit and miss links of a threaded tree or forest, as the
-    numpy path of the JAX package's `thread_links`: int32 (hit [8, M],
-    miss [8, M]).  For octant `o` (bit a set: the direction is negative
-    along axis a) the depth-first order visits each interior node's near
-    child first, the left (lower) child when the direction is not negative
-    along the node's split axis (infra/bvh.cpp:245-249).  A forest's trees
-    are chained in `roots` order: finishing one continues at the next root.
+    JAX package's `thread_links` with its library loaded (the C++ walk of
+    `accel/native.py`; its numpy twin there gives the same links): int32
+    (hit [8, M], miss [8, M]).  For octant `o` (bit a set: the direction is
+    negative along axis a) the depth-first order visits each interior
+    node's near child first, the left (lower) child when the direction is
+    not negative along the node's split axis (infra/bvh.cpp:245-249).  A
+    forest's trees are chained in `roots` order: finishing one continues
+    at the next root.
 
     A node with no children and no triangles is refused: the JAX package
     would thread it as an interior node whose hit link is -1 and end the
-    walk there."""
+    walk there.  So is an interior node with a child or a root outside
+    the tree, which the C++ walk would write past its tables."""
     m = left.shape[0]
     roots = [0] if roots is None else [int(r) for r in roots]
     is_leaf = tri_count > 0
     empty = np.nonzero((left < 0) & ~is_leaf)[0]
     if empty.size:
         raise ValueError(f"node {int(empty[0])} has neither children nor triangles")
-    hit = np.full((8, m), -1, np.int32)
-    miss = np.full((8, m), -1, np.int32)
-    for o in range(8):
-        neg = [(o >> a) & 1 for a in range(3)]
-        ho, mo = hit[o], miss[o]
-        # (node, exit link); root i exits into root i + 1
-        stack = [(roots[i], roots[i + 1] if i + 1 < len(roots) else -1)
-                 for i in range(len(roots) - 1, -1, -1)]
-        while stack:
-            node, ex = stack.pop()
-            mo[node] = ex
-            if is_leaf[node]:
-                ho[node] = ex
-                continue
-            if neg[int(axis[node])]:
-                near, far = int(right[node]), int(left[node])
-            else:
-                near, far = int(left[node]), int(right[node])
-            ho[node] = near
-            stack.append((near, far))
-            stack.append((far, ex))
-    return hit, miss
+    inner = ~is_leaf
+    stray = np.nonzero(inner & ((left >= m) | (right < 0) | (right >= m)))[0]
+    if stray.size or any(not 0 <= r < m for r in roots):
+        raise ValueError(f"a child or a root outside the tree of {m} nodes")
+    return native.thread_links_native(left, right, tri_count, axis, roots=roots)

@@ -1,15 +1,16 @@
 """Host build outputs (numpy) to the reference walks' tables on a device,
 as the JAX package's `cpu_ray_tracer_tpu/accel/compile.py`:
-`make_triangle_pool`, `compile_bvh`, and `bvh_arrays`, which threads a
-built tree or forest (the part `compile_bvh` and the scene compiler's
-layouts share).  Every function takes the device explicitly."""
+`make_triangle_pool` and `bvh_arrays`, which threads a built tree
+(`tree_tables`) or fused forest, the threading part of its `compile_bvh`
+(the scene compiler builds each tree with the options it was given).
+Every function takes the device explicitly."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from cpu_ray_tracer_tpu_torch.accel import bvh_builder
-from cpu_ray_tracer_tpu_torch.accel.types import BVHArrays, TrianglePool
+from cpu_ray_tracer_tpu_torch.accel.types import BuildStats, BVHArrays, HostBVH, TrianglePool
 
 
 def shading_records(tri_v: np.ndarray, tri_n: np.ndarray, tri_uv: np.ndarray) -> np.ndarray:
@@ -46,25 +47,23 @@ def make_triangle_pool(tri_v: np.ndarray, tri_n=None, tri_uv=None, obj_id=None, 
                         shade).to(device)
 
 
-def bvh_arrays(host: dict, stats: bvh_builder.BuildStats, device) -> BVHArrays:
+def tree_tables(h: HostBVH, tri_indices: np.ndarray) -> dict:
+    """The arrays of one built tree `h` (root 0) with its leaf-partitioned
+    triangle order `tri_indices`, as `bvh_arrays` and `pack.pack_bvh`
+    take them."""
+    return dict(node_min=h.node_min, node_max=h.node_max, left=h.left, right=h.right,
+                axis=h.axis, left_first=h.left_first, tri_count=h.tri_count,
+                tri_indices=tri_indices, root=0)
+
+
+def bvh_arrays(host: dict, stats: BuildStats, device) -> BVHArrays:
     """The `BVHArrays` of a built tree or fused forest `host` (`node_min`,
     `node_max`, `left`, `right`, `axis`, `left_first`, `tri_count`,
-    `tri_indices`, `root`), threaded from its root, with the leaf size
-    and depth of `stats`, on `device`."""
+    `tri_indices`, `root`), threaded from its root by
+    `bvh_builder.thread_links`, with the leaf size and depth of `stats`,
+    on `device`."""
     hit, miss = bvh_builder.thread_links(host["left"], host["right"], host["tri_count"],
                                          host["axis"], roots=[host["root"]])
     return BVHArrays(host["node_min"], host["node_max"], host["left_first"], host["tri_count"],
                      hit, miss, host["tri_indices"], max_leaf=stats.max_leaf,
                      max_depth=stats.max_depth, root=host["root"]).to(device)
-
-
-def compile_bvh(tri_v: np.ndarray, force_split_cap: int | None = bvh_builder.FORCE_SPLIT_CAP,
-                leaf_target: int | None = None, *, device):
-    """Build and thread a BVH over triangles tri_v [N, 3, 3] (leaves of 2
-    unless `leaf_target` says otherwise): (BVHArrays on `device`,
-    BuildStats)."""
-    h, idx, stats = bvh_builder.build_bvh(tri_v, force_split_cap, leaf_target)
-    host = dict(node_min=h.node_min, node_max=h.node_max, left=h.left, right=h.right,
-                axis=h.axis, left_first=h.left_first, tri_count=h.tri_count, tri_indices=idx,
-                root=0)
-    return bvh_arrays(host, stats, device), stats

@@ -13,14 +13,57 @@ its near child for an interior node) and when it is missed or done
 (`bvh_builder.thread_links`).  The layouts join what one walk step reads
 into one row, so that a step gathers each table once: `TrianglePool.rows`,
 `BVHArrays.box`, `.leaf` and `.links`, `GridArrays.cell_range`,
-`KDTreeArrays.node`.  `BuildStats` is `accel/bvh_builder.BuildStats`.
+`KDTreeArrays.node`.
+
+The builders' outputs come first: `BuildStats`, a build's statistics, and
+`HostBVH`, the numpy tables that both BVH builders (`accel/bvh_builder.py`
+and its native twin `accel/native.py`) fill.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch import nn
+
+
+@dataclasses.dataclass
+class BuildStats:
+    """Host-side build instrumentation, as the reference's buildTime us and
+    maxDepth (infra/bvh.cpp:6,22-23,111; the JAX package's
+    accel/types.py:110-118)."""
+
+    build_time_us: int = 0
+    max_depth: int = 0
+    num_nodes: int = 0
+    num_leaves: int = 0
+    max_leaf: int = 0
+
+
+class HostBVH:
+    """Builder output: per-node arrays, trimmed to `nodes_used`.  Interior
+    nodes have `tri_count == 0` and children `left`/`right`; leaves hold
+    `tri_count` triangles from `left_first` in the triangle index array.
+    Room for `cap` nodes (default 2 n_tris - 1, a binary build's most)."""
+
+    def __init__(self, n_tris: int, cap: int | None = None):
+        cap = max(2 * n_tris - 1, 1) if cap is None else cap
+        self.node_min = np.full((cap, 3), 1e30, np.float32)
+        self.node_max = np.full((cap, 3), -1e30, np.float32)
+        self.left_first = np.zeros(cap, np.int32)
+        self.tri_count = np.zeros(cap, np.int32)
+        self.left = np.full(cap, -1, np.int32)
+        self.right = np.full(cap, -1, np.int32)
+        self.axis = np.zeros(cap, np.int32)
+        self.nodes_used = 1
+
+    def trim(self):
+        m = self.nodes_used
+        for name in ("node_min", "node_max", "left_first", "tri_count", "left", "right", "axis"):
+            setattr(self, name, getattr(self, name)[:m])
+        return self
 
 
 def _buffers(module: nn.Module, **arrays) -> None:

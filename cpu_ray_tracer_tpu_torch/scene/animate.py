@@ -7,10 +7,12 @@ JAX package's `cpu_ray_tracer_tpu/scene/animate.py`.
 edits.  On a shared-instancing scene (`instancing="shared"`) `update` is
 the reference's O(1) SetTransform: new instance matrices and world boxes
 (`update_shared_transforms`), every mesh's tables shared with the old
-scene.  On a baked scene it rebuilds the whole scene (the port's numpy
-build: about 1.7 s for bunny_teapot, PERF.md); `accel/bvh_builder.
-refit_bvh` refits one tree's bounds after vertex motion where the
-topology may stay.
+scene.  On a baked scene it rebuilds the whole scene with the options it
+was built with (`builder`, `sbvh` among them; the native BVH builds take
+a small share of a rebuild, PERF.md); `accel/bvh_builder.refit_bvh`
+refits one tree's bounds after vertex motion where the topology may
+stay (an SBVH's too: its leaves' whole-triangle boxes stay
+conservative).
 """
 
 from __future__ import annotations

@@ -47,7 +47,13 @@ device, where the JAX package's takes them on a TPU only).
 
 `force_split_cap` and the BVH leaf size (`leaf_target`) are the builder's
 (`accel/bvh_builder.py`; `leaf_target` None: the route's, 24 for the
-kernels and the reference's 2 for the reference walks); `parity=True`
+kernels and the reference's 2 for the reference walks).  `builder`
+picks the BVH builder of every tree the scene holds: "native" (the
+default, the JAX package's: the C++ build of `accel/native.py`) or
+"numpy" (the JAX package's `CRT_NATIVE=0`); `sbvh=True` builds each BVH
+as an SBVH (native only; the JAX package's `CRT_SBVH=1`), whose leaves
+may repeat a triangle.  The JAX package reads both from the environment;
+the port takes them as arguments, as it takes `wide`.  `parity=True`
 takes the reference route with the reference's SAH stop
 (`force_split_cap=None`), as the JAX package's parity mode does.  Node
 numbering, builds and the leaf triangle order are the JAX package's, so
@@ -63,7 +69,7 @@ from cpu_ray_tracer_tpu_torch.accel import (
     bvh_builder, cell_tree, grid_builder, kdtree_builder, pack, tlas_builder, wide as wide_mod,
 )
 from cpu_ray_tracer_tpu_torch.accel.compile import (
-    bvh_arrays, compile_bvh, make_triangle_pool, shading_records,
+    bvh_arrays, make_triangle_pool, shading_records, tree_tables,
 )
 from cpu_ray_tracer_tpu_torch.core import device as device_mod
 from cpu_ray_tracer_tpu_torch.core import vecmath as vm
@@ -95,7 +101,8 @@ def compile_scene(
     instancing: str = "baked", parity: bool = False,
     force_split_cap: int | None = bvh_builder.FORCE_SPLIT_CAP, shadow_quirk: bool = True,
     wide: bool | str = False, bilinear: bool = False, leaf_target: int | None = None,
-    use_pallas: bool | None = None, device=device_mod.DEFAULT,
+    use_pallas: bool | None = None, builder: str = "native", sbvh: bool = False,
+    device=device_mod.DEFAULT,
 ) -> tuple[DeviceScene, SceneInfo]:
     """Compile an XML scene, or a parsed `spec` (`io/scene_xml.SceneSpec`,
     which `scene/animate.AnimatedScene` edits), to a DeviceScene on
@@ -107,7 +114,8 @@ def compile_scene(
     walks (module docstring); `parity` the reference's normals and BVH
     stops on the reference route; `force_split_cap` and `leaf_target` the
     BVH builder's (None: the reference's SAH stop; the route's leaf size);
-    `shadow_quirk` as the JAX package's; `bilinear` picks the bilinear
+    `builder` "native" or "numpy" and `sbvh` the BVH builds' (module
+    docstring); `shadow_quirk` as the JAX package's; `bilinear` picks the bilinear
     texture tap, which carries texel gradients and keeps the scene off the
     wavefront and Whitted level kernels (`DeviceScene` doc)."""
     dev = device_mod.resolve(device)
@@ -120,6 +128,9 @@ def compile_scene(
                          "binary BVH")
     if leaf_target is None and not reference:
         leaf_target = bvh_builder.LEAF_TARGET
+    bvh_builder.check_builder(builder, sbvh)
+    bvh_opts = dict(force_split_cap=force_split_cap, leaf_target=leaf_target, builder=builder,
+                    sbvh=sbvh)
     if layout not in ("tlas", "mono"):
         raise ValueError(f"layout={layout!r}: expected 'tlas' or 'mono'")
     if instancing not in ("baked", "shared"):
@@ -173,8 +184,7 @@ def compile_scene(
         skydome_tex=skydome_tex, shadow_quirk=shadow_quirk, bilinear=bilinear,
     )
     if instancing == "shared":
-        pool, shared, ref, info = _build_shared_instances(spec, force_split_cap, leaf_target,
-                                                          reference)
+        pool, shared, ref, info = _build_shared_instances(spec, bvh_opts, reference)
         return DeviceScene(packed=None, pool=pool, shared=shared, reference=ref,
                            **lights).to(dev), info
 
@@ -185,7 +195,7 @@ def compile_scene(
     ids = dict(obj_id=np.concatenate(inst_obj), mat_id=np.concatenate(inst_mat))
     if reference:
         return _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids,
-                                force_split_cap, leaf_target, lights, dev)
+                                bvh_opts, lights, dev)
 
     v0 = all_v[:, 0]
     e1 = all_v[:, 1] - v0
@@ -194,14 +204,11 @@ def compile_scene(
     wide_pack = None
     if accel == "bvh":
         if layout == "mono":
-            h, idx, build_stats = bvh_builder.build_bvh(all_v, force_split_cap, leaf_target)
-            host = dict(node_min=h.node_min, node_max=h.node_max, left=h.left, right=h.right,
-                        axis=h.axis, left_first=h.left_first, tri_count=h.tri_count,
-                        tri_indices=idx, root=0)
+            h, idx, build_stats = bvh_builder.build_bvh(all_v, **bvh_opts)
+            host = tree_tables(h, idx)
             blas_stats = []
         else:
-            host, build_stats, blas_stats = _build_unified_tlas(inst_v, force_split_cap,
-                                                                leaf_target)
+            host, build_stats, blas_stats = _build_unified_tlas(inst_v, **bvh_opts)
         packed = pack.pack_bvh(**host, tri_v=all_v, shade16=shade16, **ids)
         if wide:
             wide_pack = wide_mod.pack_wide(
@@ -231,12 +238,14 @@ def compile_scene(
         tree_depth=packed.depth,
         build_stats=build_stats,
         blas_stats=blas_stats,
+        builder=builder,
+        sbvh=sbvh,
     )
     return scene.to(dev), info
 
 
-def _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids,
-                     force_split_cap, leaf_target, lights, dev):
+def _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids, bvh_opts,
+                     lights, dev):
     """The reference route's scene (`use_pallas=False`; module
     docstring): the triangle pool and the walked structures, with
     global triangle ids; the build statistics as the kernels' route
@@ -245,12 +254,11 @@ def _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids,
     blas_stats = []
     if accel == "bvh":
         if layout == "mono":
-            bvh, build_stats = compile_bvh(all_v, force_split_cap, leaf_target, device="cpu")
+            h, idx, build_stats = bvh_builder.build_bvh(all_v, **bvh_opts)
+            host = tree_tables(h, idx)
         else:
-            host, build_stats, blas_stats = _build_unified_tlas(inst_v, force_split_cap,
-                                                                leaf_target)
-            bvh = bvh_arrays(host, build_stats, "cpu")
-        structs = [bvh]
+            host, build_stats, blas_stats = _build_unified_tlas(inst_v, **bvh_opts)
+        structs = [bvh_arrays(host, build_stats, "cpu")]
         num_nodes, depth = structs[0].num_nodes, build_stats.max_depth
     else:
         builder = grid_builder if accel == "grid" else kdtree_builder
@@ -273,7 +281,8 @@ def _reference_scene(spec, layout, accel, inst_v, all_v, all_n, all_uv, ids,
                         reference=ReferenceTables(tris, accel, structs), **lights)
     info = SceneInfo(name=spec.name, triangle_count=int(all_v.shape[0]),
                      object_count=len(spec.objects), num_nodes=num_nodes, tree_depth=depth,
-                     build_stats=build_stats, blas_stats=blas_stats)
+                     build_stats=build_stats, blas_stats=blas_stats,
+                     builder=bvh_opts["builder"], sbvh=bvh_opts["sbvh"])
     return scene.to(dev), info
 
 
@@ -313,10 +322,11 @@ def instance_tables(spec, inst_mesh, mesh_bounds) -> dict:
     return out
 
 
-def _build_shared_instances(spec, force_split_cap, leaf_target, reference: bool = False):
+def _build_shared_instances(spec, bvh_opts: dict, reference: bool = False):
     """One object-space BVH per unique mesh (by model path, in order of
     first use) and the instance tables, as the JAX package's
-    `_build_shared_instances` (scene/build.py:477-598).  The pool holds
+    `_build_shared_instances` (scene/build.py:477-598), each BVH built
+    with `bvh_opts` (`bvh_builder.build_bvh`'s options).  The pool holds
     each unique mesh once; each mesh's tables carry pool-global triangle
     ids in their meta words, and a placeholder object (the mesh's index)
     and material 0 that the query replaces by the instance's.  With
@@ -335,12 +345,9 @@ def _build_shared_instances(spec, force_split_cap, leaf_target, reference: bool 
     pool_mat = np.zeros(all_v.shape[0], np.int32)
     packs, stats, bounds, tri_base = [], [], [], 0
     for v, _, _ in meshes:
-        host, idx, st = bvh_builder.build_bvh(v.astype(np.float32), force_split_cap, leaf_target)
+        host, idx, st = bvh_builder.build_bvh(v.astype(np.float32), **bvh_opts)
         if reference:
-            packs.append(bvh_arrays(dict(
-                node_min=host.node_min, node_max=host.node_max, left=host.left, right=host.right,
-                axis=host.axis, left_first=host.left_first, tri_count=host.tri_count,
-                tri_indices=idx + tri_base, root=0), st, "cpu"))
+            packs.append(bvh_arrays(tree_tables(host, idx + tri_base), st, "cpu"))
         else:
             packs.append(pack.pack_bvh(
                 host.node_min, host.node_max, host.left, host.right, host.axis, host.left_first,
@@ -367,6 +374,8 @@ def _build_shared_instances(spec, force_split_cap, leaf_target, reference: bool 
         tree_depth=max(st.max_depth if reference else p.depth for p, st in zip(packs, stats)),
         build_stats=stats[0],
         blas_stats=stats[1:],
+        builder=bvh_opts["builder"],
+        sbvh=bvh_opts["sbvh"],
     )
     return np.concatenate([v0, all_v[:, 1] - v0, all_v[:, 2] - v0], axis=1), shared, ref, info
 
@@ -404,9 +413,9 @@ def _instances(spec, layout: str = "tlas", parity: bool = False):
 
 
 def tlas_node_tables(xml_path: str) -> tuple[np.ndarray, np.ndarray]:
-    """The fused TLAS forest of `accel="bvh"` as node tables: boxes float32
-    [6, M] (min xyz, max xyz) and per-octant hit/miss links int32
-    [8, 2, M], threaded from the TLAS root.  The JAX package's
+    """The fused TLAS forest of `accel="bvh"` (the default build) as node
+    tables: boxes float32 [6, M] (min xyz, max xyz) and per-octant
+    hit/miss links int32 [8, 2, M], threaded from the TLAS root.  The JAX package's
     `pk.node_aabb` and `pk.node_links` (accel/pack.py:169-175,
     scene/build.py:672 there), which its node-step probe reads."""
     host = _build_unified_tlas(_instances(load_scene_xml(xml_path))[0])[0]
@@ -446,15 +455,20 @@ def _build_cell_forest(accel: str, inst_v, all_v, shade16, ids: dict):
 
 
 def _build_unified_tlas(inst_v: list[np.ndarray], force_split_cap=bvh_builder.FORCE_SPLIT_CAP,
-                        leaf_target=bvh_builder.LEAF_TARGET):
-    """Per-instance world-space BVHs + agglomerative TLAS, fused into one
-    node forest: [TLAS interior][BLAS 0 nodes][BLAS 1 nodes]...  Returns the
-    host arrays `pack.pack_bvh` takes, the forest's BuildStats and each
-    BLAS's (scene/build.py:690-702 there)."""
+                        leaf_target=bvh_builder.LEAF_TARGET, builder: str = "native",
+                        sbvh: bool = False):
+    """Per-instance world-space BVHs (`bvh_builder.build_bvh` with these
+    options) + agglomerative TLAS, fused into one node forest: [TLAS
+    interior][BLAS 0 nodes][BLAS 1 nodes]...  A leaf's first reference is
+    offset by the references before its BLAS (an SBVH holds more than its
+    triangles), its triangle ids by the triangles.  Returns the host
+    arrays `pack.pack_bvh` takes, the forest's BuildStats and each BLAS's
+    (scene/build.py:690-702 there)."""
     blas_hosts, blas_idx, blas_stats, inst_bounds = [], [], [], []
     tri_base = 0
     for v in inst_v:
-        host, idx, st = bvh_builder.build_bvh(v, force_split_cap, leaf_target)
+        host, idx, st = bvh_builder.build_bvh(v, force_split_cap, leaf_target, builder=builder,
+                                              sbvh=sbvh)
         blas_stats.append(st)
         blas_hosts.append(host)
         blas_idx.append(idx + tri_base)

@@ -97,7 +97,8 @@ class SceneInfo:
     builds' statistics (the data behind the reference's GetBuildTime /
     GetMaxTreeDepth; the JAX package's scene/types.py:117-135):
     `build_stats` of the scene's tree, and on the TLAS layout those of
-    each instance's tree in `blas_stats`."""
+    each instance's tree in `blas_stats`; the BVH `builder` ("native" or
+    "numpy") and whether its BVHs were asked for as SBVHs (`sbvh`)."""
 
     name: str
     triangle_count: int
@@ -106,6 +107,8 @@ class SceneInfo:
     tree_depth: int
     build_stats: BuildStats
     blas_stats: list = dataclasses.field(default_factory=list)
+    builder: str = "native"
+    sbvh: bool = False
 
     @property
     def build_time_us(self) -> int:

@@ -8,12 +8,16 @@ asks for another).
 `use_pallas` maps as the JAX package's: "false" builds the reference
 walks (`compile_scene(use_pallas=False)`, plain PyTorch on the device),
 "true" and "auto" the kernels (their plain versions on the CPU; the JAX
-package's "auto" takes the kernels on a TPU only).  `sharded` (ROADMAP
-item 14) raises in the CLI: it is not ported yet.
-`whitted_cap_factor` and `whitted_grow_cap` are accepted and change
-nothing: the port's Whitted tracer gathers children exactly and drops
-none.  `passes_per_step` and `n_devices` are accepted and unused, as in
-the JAX package's CLI.
+package's "auto" takes the kernels on a TPU only).  `sharded` splits the
+path tracer's pixels over the ranks of a ray mesh (`parallel/`, the CLI's
+docstring); `n_devices` is then the world size the run expects (0: the
+launcher's).  `whitted_cap_factor` and `whitted_grow_cap` are accepted
+and change nothing: the port's Whitted tracer gathers children exactly
+and drops none.  `passes_per_step` is accepted and unused, as in the JAX
+package's CLI.  The BVH builder is the native one, as the JAX package's
+default; the JAX CLI reads `CRT_NATIVE` and `CRT_SBVH` from the
+environment, and the port's config has no field for them (as none for
+`wide`): `compile_scene(builder=..., sbvh=...)` takes them.
 """
 
 from __future__ import annotations

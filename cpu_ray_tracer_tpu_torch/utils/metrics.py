@@ -83,17 +83,29 @@ class JsonlLogger:
             self._f.close()
 
 
-def runtime_flags(device=device_mod.DEFAULT) -> dict:
-    """What the port runs on `device`, for self-describing records: the
+def runtime_flags(device=device_mod.DEFAULT, info=None) -> dict:
+    """What the port runs on `device`, for self-describing records, as the
+    JAX package's `runtime_flags` (utils/metrics.py:70-86 there): the
     device's name, the file name of the CUDA kernel library (its name
     hashes the sources under `csrc/` and the flags; None on the CPU, where
-    the plain versions run) and `native` (the C++ scene builder, not ported:
-    always False).  The JAX package records its native builder, SBVH and
-    CRT_* switches instead (ROADMAP queue 3)."""
+    the plain versions run), `native`, whether the C++ scene builder
+    (`accel/native.py`) loads, and with the `SceneInfo` of the scene that
+    was built, whether its BVHs came from it, and `sbvh`, whether they
+    were asked for as SBVHs (False without `info`).  The JAX package reads
+    its CRT_* switches from the environment; the port takes them as
+    arguments (`compile_scene`)."""
+    from cpu_ray_tracer_tpu_torch.accel import native as native_mod
+
     dev = device_mod.resolve(device)
     cuda = dev.type == "cuda"
+    try:
+        native_mod.load()
+        loads = True
+    except RuntimeError:  # g++ failed: no native build can have run
+        loads = False
     return dict(
         device=torch.cuda.get_device_name(dev) if cuda else "cpu",
         kernel_library=os.path.basename(kernel_lib.library_path()) if cuda else None,
-        native=False,
+        native=loads and (info is None or info.builder == "native"),
+        sbvh=bool(info is not None and info.sbvh),
     )

@@ -22,8 +22,11 @@ on the CPU (`--device cpu`, the kernels' plain versions).
   triangles lie in their leaves' box faces, so a leaf's slab test against
   the ray's best t is a tie that rounding decides.  The test prints how
   many such rays there are.
-* `--sharded`, which the port does not run, raises NotImplementedError
-  naming its ROADMAP item.
+* `--sharded true --n-devices 2` in a world of one raises and names
+  torchrun (one process drives one device; `tests/test_torch_parallel.py`
+  runs the sharded CLI).
+* The JSONL's first record states what ran: the native builder, the
+  SBVH option, and under `--sharded` the world size.
 """
 
 import json
@@ -48,7 +51,11 @@ CPU = ["--device", "cpu"]
 
 
 def _records(path):
-    return [json.loads(line) for line in open(path).read().strip().splitlines()]
+    """The step and frame records of a CLI's JSONL, without the port's
+    first record, which states what ran (`test_first_record_states_what_ran`;
+    the JAX CLI writes none)."""
+    recs = [json.loads(line) for line in open(path).read().strip().splitlines()]
+    return [r for r in recs if "runtime" not in r]
 
 
 # --- the JAX package's tests/test_cli.py, against the port -----------------
@@ -293,12 +300,29 @@ def test_checkpoints_resume_across_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--sharded", "true"], "item 14"),
-])
+    (["--sharded", "true", "--n-devices", "2"], "torchrun --nproc-per-node 2"),
+], ids=["flag0-item 14"])
 def test_unported_flags_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The sharded CLI is ported; a world size the run cannot have raises
+    and says how to start the processes."""
+    with pytest.raises(ValueError, match=item):
         main(["--scene-xml", CUBE_XML, "--width", "8", "--height", "4",
               "--out", str(tmp_path / "x.png"), *flag, *CPU])
+    assert not torch.distributed.is_initialized()  # the mesh it made is closed
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["plain", "sharded"])
+def test_first_record_states_what_ran(tmp_path, sharded):
+    jl = str(tmp_path / "m.jsonl")
+    assert main(["--scene-xml", CUBE_XML, "--spp", "1", "--width", "8", "--height", "4",
+                 "--out", str(tmp_path / "x.png"), "--metrics-jsonl", jl, *CPU,
+                 *(["--sharded", "true"] if sharded else [])]) == 0
+    recs = [json.loads(line) for line in open(jl).read().strip().splitlines()]
+    want = dict(device="cpu", kernel_library=None, native=True, sbvh=False)
+    if sharded:
+        want["world"] = 1
+    assert recs[0] == dict(runtime=want)
+    assert [r["step"] for r in recs[1:]] == [1]
 
 
 def test_scene_is_required():

@@ -86,5 +86,6 @@ def test_every_kernel_module_is_covered():
                  "diff.grad", "diff.optimize", "render.basics", "render.progressive", "cli",
                  "scene.animate", "scene.primitive_scene", "ops.primitives", "core.noise",
                  "ops.traverse_bvh", "ops.traverse_grid", "ops.traverse_kd", "ops.forest",
-                 "accel.types", "accel.compile"):
+                 "accel.types", "accel.compile", "accel.native", "parallel.mesh",
+                 "parallel.sharded"):
         assert f"cpu_ray_tracer_tpu_torch.{name}" in MODULES, name

@@ -171,7 +171,9 @@ def test_node_tables_equal_jax(jax_tables):
     assert aabb.dtype == np.float32 and links.dtype == np.int32
     np.testing.assert_array_equal(aabb, j_aabb)
     np.testing.assert_array_equal(links, j_links)
-    assert aabb.shape == (6, 1333) and links.shape == (8, 2, 1333)
+    # the node count is the JAX package's (1,333 with its default, native, builder)
+    m = j_aabb.shape[1]
+    assert aabb.shape == (6, m) and links.shape == (8, 2, m)
     # the probe's octant-0 links, as its entry point builds them
     inp = sync_bench.inputs(1, "cpu")
     np.testing.assert_array_equal(inp["links"].numpy(), j_links[0])

@@ -115,7 +115,13 @@ def test_frame_metrics_match_jax():
 
 def test_runtime_flags_state_what_ran():
     flags = metrics.runtime_flags("cpu")
-    assert flags == dict(device="cpu", kernel_library=None, native=False)
+    # the native builder loads (as the JAX package's runtime_flags reports it)
+    assert flags == dict(device="cpu", kernel_library=None, native=True, sbvh=False)
+    for kw, native, sbvh in ((dict(), True, False), (dict(sbvh=True), True, True),
+                             (dict(builder="numpy"), False, False)):
+        _, info = compile_scene(CUBE_XML, device="cpu", **kw)
+        got = metrics.runtime_flags("cpu", info)
+        assert (got["native"], got["sbvh"]) == (native, sbvh), kw
     if torch.cuda.is_available():
         cuda = metrics.runtime_flags("cuda")
         assert cuda["device"] == torch.cuda.get_device_name(0)

@@ -25,13 +25,15 @@ import pytest
 import torch
 
 from cpu_ray_tracer_tpu.ops.pallas import wide_bvh as jax_wide
-from cpu_ray_tracer_tpu_torch.accel import pack, wide
+from cpu_ray_tracer_tpu_torch.accel import wide
 from cpu_ray_tracer_tpu_torch.core import camera as cam_mod
 from cpu_ray_tracer_tpu_torch.ops import closest_hit, intersect, wavefront_pt, whitted_wf, wide_bvh
 from cpu_ray_tracer_tpu_torch.render import pathtracer, whitted
 from cpu_ray_tracer_tpu_torch.scene import query
 from cpu_ray_tracer_tpu_torch.scene.build import compile_scene
-from torch_parity import BENCH_CAMERA, BENCH_XML, CUBE_XML, jax_compile_wide
+from torch_parity import (
+    BENCH_CAMERA, BENCH_XML, CUBE_XML, assert_wide_tables_equal, jax_compile_wide,
+)
 from torch_rays import assert_hits_agree, node_bounds, random_rays, shadow_rays
 
 XMLS = {"cube_scene": CUBE_XML, "bunny_teapot": BENCH_XML}
@@ -47,31 +49,8 @@ def pair(request):
 
 def test_wide_tables_equal(pair):
     jax_scene, port = pair
-    pk = jax_scene.packed_wide
     assert port.walk == "wide" and not port.stack_kernels
-    nodes = port.wide_nodes.numpy()
-    assert nodes.shape == (pk.num_wide, wide.WIDE_WORDS)
-    assert port.wide_roots.tolist() == list(pk.stack_roots)
-    boxes = nodes[:, : 6 * wide.WIDE].view(np.float32)
-    np.testing.assert_array_equal(boxes, np.asarray(pk.aabb48).T)  # NaN slots alike
-    np.testing.assert_array_equal(nodes[:, wide.W_ORDER:], np.asarray(pk.orderw).T)
-    child = nodes[:, wide.W_CHILD : wide.W_CHILD + wide.WIDE]
-    cmeta = np.asarray(pk.cmeta).T
-    # the port's leaf word is ~(count << 22 | first) (the in-tree scenes'
-    # leaves fit it), the JAX package's row | nrows << 22
-    assert port.leaf_codes
-    shift, mask = pack.LEAF_SHIFT, (1 << pack.LEAF_SHIFT) - 1
-    leaf, jax_leaf = child < 0, cmeta >> shift > 0
-    np.testing.assert_array_equal(leaf, jax_leaf)
-    np.testing.assert_array_equal(child[~leaf], cmeta[~jax_leaf])  # interior ids, empty 0
-    # leaf children: the same triangles in the same order
-    meta = port.shade.numpy().view(np.int32)[:, 15] & 0xFFFFF
-    slot_tri = np.asarray(pk.slot_tri)
-    for w, k in zip(*np.nonzero(leaf)):
-        first, count = ~child[w, k] & mask, ~child[w, k] >> shift
-        row, nrows = cmeta[w, k] & mask, cmeta[w, k] >> shift
-        ids = slot_tri[row * 8 : (row + nrows) * 8]
-        assert meta[first : first + count].tolist() == ids[ids >= 0].tolist(), (w, k)
+    assert_wide_tables_equal(jax_scene, port)
 
 
 def _rays(kind, port):

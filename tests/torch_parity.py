@@ -1,9 +1,11 @@
 """Shared helpers of the `test_torch_*.py` files: run the JAX package the
 way its own tests do (CPU backend, packed tables with the Pallas kernels in
-interpret mode, the host-bounce path tracer, the numpy BVH builder) and
-carry its scene state into the PyTorch port as numpy arrays."""
+interpret mode, the host-bounce path tracer, its default native BVH
+builder, or with `numpy=True` its numpy one) and carry its scene state
+into the PyTorch port as numpy arrays."""
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -15,38 +17,94 @@ BENCH_XML = os.path.join(OUR_ASSETS, "scenes", "bunny_teapot.xml")
 BENCH_CAMERA = dict(pos=(0.0, 0.3, -1.2), target=(0.0, -0.1, 2.5))  # bench.py
 
 
-def jax_reference_env(mp: pytest.MonkeyPatch) -> None:
+def jax_reference_env(mp: pytest.MonkeyPatch, numpy: bool = False, sbvh: bool = False) -> None:
     """The configuration the port reproduces: the host-bounce path tracer
     (no wavefront kernel), the binary packet kernel (no wide BVH), and the
-    numpy builder.  The native library handle is cached per process, so
-    the loader itself is patched, not only CRT_NATIVE."""
+    JAX package's default BVH builder, the native one, which the port's
+    `compile_scene` defaults to as well.  The library must load: a JAX
+    package that fell back to its numpy builder would be compared with the
+    port's native trees.  `numpy=True` takes the numpy builder instead
+    (`CRT_NATIVE=0`, for the port's `builder="numpy"`; the library handle
+    is cached per process, so the loader itself is patched), `sbvh=True`
+    the SBVH (`CRT_SBVH=1`, for the port's `sbvh=True`)."""
     from cpu_ray_tracer_tpu.accel import native
 
     mp.setenv("CRT_WAVEFRONT", "0")
     mp.setenv("CRT_WIDE", "0")
-    mp.setenv("CRT_NATIVE", "0")
-    mp.setattr(native, "get_lib", lambda: None)
+    if numpy:
+        mp.setenv("CRT_NATIVE", "0")
+        mp.setattr(native, "get_lib", lambda: None)
+    else:
+        mp.delenv("CRT_NATIVE", raising=False)
+        for _ in range(3):
+            if native.get_lib() is not None:
+                break
+            # another test process may have been writing the library: load anew
+            time.sleep(1.0)
+            native._tried = False
+        assert native.get_lib() is not None, "the JAX package's native library did not load"
+    if sbvh:
+        mp.setenv("CRT_SBVH", "1")
+    else:
+        mp.delenv("CRT_SBVH", raising=False)
 
 
-def jax_compile(xml: str, layout: str = "tlas", **kwargs):
+def jax_compile(xml: str, layout: str = "tlas", numpy: bool = False, sbvh: bool = False,
+                **kwargs):
     """JAX `compile_scene(layout=layout, use_pallas=True, **kwargs)` in the
-    reference configuration (`parity=True` turns the kernels off there)."""
+    reference configuration (`parity=True` turns the kernels off there),
+    with the builder `jax_reference_env` picks for `numpy` and `sbvh`."""
     from cpu_ray_tracer_tpu.scene.build import compile_scene
 
     with pytest.MonkeyPatch.context() as mp:
-        jax_reference_env(mp)
+        jax_reference_env(mp, numpy=numpy, sbvh=sbvh)
         return compile_scene(xml, layout=layout, use_pallas=True, **kwargs)
 
 
-def jax_compile_wide(xml: str, **kwargs):
+def jax_compile_wide(xml: str, sbvh: bool = False, **kwargs):
     """`jax_compile` with the wide BVH (`CRT_WIDE=1`): the scene carries
-    `packed_wide`, and its closest-hit queries take the wide kernel."""
+    `packed_wide`, and its closest-hit queries take the wide kernel;
+    `sbvh=True` collapses SBVHs (`CRT_SBVH=1`)."""
     from cpu_ray_tracer_tpu.scene.build import compile_scene
 
     with pytest.MonkeyPatch.context() as mp:
-        jax_reference_env(mp)
+        jax_reference_env(mp, sbvh=sbvh)
         mp.setenv("CRT_WIDE", "1")
         return compile_scene(xml, layout="tlas", use_pallas=True, **kwargs)
+
+
+def assert_wide_tables_equal(jax_scene, port) -> None:
+    """The port's wide collapse (`compile_scene(wide=...)`) equals the JAX
+    package's `packed_wide` (accel/wide.py): each wide node's 8 child
+    boxes (NaN for empty slots), its 8 per-octant order words, its
+    interior children, and the triangles of its leaf children (the port
+    names the binary pack's slots where the JAX package regroups rows)."""
+    from cpu_ray_tracer_tpu_torch.accel import pack, wide
+
+    pk = jax_scene.packed_wide
+    nodes = port.wide_nodes.numpy()
+    assert nodes.shape == (pk.num_wide, wide.WIDE_WORDS)
+    assert port.wide_roots.tolist() == list(pk.stack_roots)
+    boxes = nodes[:, : 6 * wide.WIDE].view(np.float32)
+    np.testing.assert_array_equal(boxes, np.asarray(pk.aabb48).T)  # NaN slots alike
+    np.testing.assert_array_equal(nodes[:, wide.W_ORDER:], np.asarray(pk.orderw).T)
+    child = nodes[:, wide.W_CHILD : wide.W_CHILD + wide.WIDE]
+    cmeta = np.asarray(pk.cmeta).T
+    # the port's leaf word is ~(count << 22 | first) (the in-tree scenes'
+    # leaves fit it), the JAX package's row | nrows << 22
+    assert port.leaf_codes
+    shift, mask = pack.LEAF_SHIFT, (1 << pack.LEAF_SHIFT) - 1
+    leaf, jax_leaf = child < 0, cmeta >> shift > 0
+    np.testing.assert_array_equal(leaf, jax_leaf)
+    np.testing.assert_array_equal(child[~leaf], cmeta[~jax_leaf])  # interior ids, empty 0
+    # leaf children: the same triangles in the same order
+    meta = port.shade.numpy().view(np.int32)[:, 15] & 0xFFFFF
+    slot_tri = np.asarray(pk.slot_tri)
+    for w, k in zip(*np.nonzero(leaf)):
+        first, count = ~child[w, k] & mask, ~child[w, k] >> shift
+        row, nrows = cmeta[w, k] & mask, cmeta[w, k] >> shift
+        ids = slot_tri[row * 8 : (row + nrows) * 8]
+        assert meta[first : first + count].tolist() == ids[ids >= 0].tolist(), (w, k)
 
 
 def jax_compile_xla(xml: str, accel: str):
@@ -100,13 +158,15 @@ def jax_scene_over(host: dict, shade16, obj_id, mat_id, xml: str = CUBE_XML):
     return base.replace(packed=pk, tris=tris, bvh=bvh)
 
 
-def jax_compile_reference(xml: str, layout: str = "tlas", **kwargs):
+def jax_compile_reference(xml: str, layout: str = "tlas", numpy: bool = False,
+                          sbvh: bool = False, **kwargs):
     """JAX `compile_scene(layout=layout, use_pallas=False, **kwargs)`: the
-    XLA traversals over the reference's tables (leaves of 2)."""
+    XLA traversals over the reference's tables (leaves of 2), with the
+    builder `jax_reference_env` picks for `numpy` and `sbvh`."""
     from cpu_ray_tracer_tpu.scene.build import compile_scene
 
     with pytest.MonkeyPatch.context() as mp:
-        jax_reference_env(mp)
+        jax_reference_env(mp, numpy=numpy, sbvh=sbvh)
         return compile_scene(xml, layout=layout, use_pallas=False, **kwargs)
 
 
